@@ -1,0 +1,95 @@
+"""Full PARQ model: backbone → rayPE add → recurrent decoder (port of
+parq_tpu/models/parq.py), returning the per-iteration stacked outputs.
+
+State-dict keys follow the reference checkpoint: ``backbone2d.*``,
+``add_ray_pe.*``, ``box3d_decoder.*``.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Dict
+
+import torch
+import torch.nn as nn
+
+from .. import resolve_device
+from ..config import ModelConfig
+from ..geometry import Camera, Pose
+from .box_processor import load_mean_size_table
+from .decoder import PARQDecoder
+from .ray_pe import AddRayPE
+from .resnet_fpn import ResNetFPN
+
+BATCH_KEYS = ("rgb_img", "camera", "T_camera_pseudoCam",
+              "T_world_pseudoCam", "T_world_local")
+
+
+class PARQModel(nn.Module):
+    def __init__(self, cfg: ModelConfig = ModelConfig()):
+        super().__init__()
+        self.cfg = cfg
+        if cfg.dec_dim != cfg.tokenizer_out_channels \
+                or cfg.tokenizer_out_channels != 4 * cfg.fpn_channels:
+            raise ValueError("need dec_dim == tokenizer_out_channels == "
+                             "4 * fpn_channels")
+        self.backbone2d = ResNetFPN(cfg.resnet_name, cfg.fpn_channels)
+        self.add_ray_pe = AddRayPE(cfg.tokenizer_out_channels,
+                                   cfg.ray_points_scale, cfg.num_samples,
+                                   cfg.min_depth, cfg.max_depth,
+                                   cfg.feat_size)
+        mean = load_mean_size_table(cfg.mean_size_path, cfg.num_semcls)
+        self.box3d_decoder = PARQDecoder(
+            cfg.dec_dim, cfg.dec_heads, cfg.dec_ffn_dim, cfg.dec_layers,
+            cfg.num_queries, cfg.num_semcls, cfg.scale, cfg.feat_size,
+            mean_size=torch.from_numpy(mean))
+
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """batch: rgb_img (B, T, H, W, 3) in [0, 1], camera (B, T, 6),
+        T_camera_pseudoCam / T_world_pseudoCam (B, T, 12),
+        T_world_local (B, 1, 12). bf16 runs under autocast; geometry,
+        norms' statistics, the sampler's sums and the heads' outputs stay
+        f32."""
+        dev = batch["rgb_img"].device
+        bf16 = self.cfg.compute_dtype == "bfloat16"
+        ctx = (torch.autocast(dev.type, dtype=torch.bfloat16) if bf16
+               else contextlib.nullcontext())
+        with ctx:
+            camera = Camera(batch["camera"]).scale(0.25)
+            Tcp = Pose(batch["T_camera_pseudoCam"])
+            Twp = Pose(batch["T_world_pseudoCam"])
+            Twl = Pose(batch["T_world_local"])
+            encoding = self.add_ray_pe(camera, Tcp, Twp, Twl)
+            memory = self.backbone2d(batch["rgb_img"]) + encoding
+            return self.box3d_decoder(memory, camera, Tcp, Twp, Twl)
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Random init from `generator`, in parameter order: weights of rank
+    ≥ 2 ~ N(0, 1/fan_in) (lecun normal, as the JAX package's default),
+    biases 0, norm scales 1, the reference points ~ N(0, 1). Frozen
+    BatchNorm statistics stay at identity."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("refpoint.weight"):
+                p.copy_(torch.randn(p.shape, generator=generator))
+            elif p.dim() >= 2:
+                fan_in = math.prod(p.shape[1:])
+                p.copy_(torch.randn(p.shape, generator=generator)
+                        / math.sqrt(fan_in))
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.fill_(1.0)
+
+
+def build_model(cfg: ModelConfig = ModelConfig(), seed: int = 0,
+                device=None) -> PARQModel:
+    """A PARQModel with random weights from `seed`, in eval mode, on
+    `device` (CUDA unless the caller names another). Weights are drawn on
+    the CPU, so one seed gives the same weights on every device."""
+    dev = resolve_device(device)
+    model = PARQModel(cfg)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()

@@ -1,0 +1,113 @@
+"""The plain versions of the port's two kernels against the JAX package:
+sampler (B1) vs ops/pixel_align.py and the Pallas kernel in interpret
+mode; flash cross-attention (B2) vs the fused Pallas forward in interpret
+mode (online-max form) and cross_attention_reference. f32, atol 1e-5."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from parq_tpu.geometry import Camera as JCamera, Pose as JPose
+from parq_tpu.kernels import pixel_aligned_features_pallas
+from parq_tpu.kernels.cross_attention_pallas import (
+    cross_attention_reference, flash_cross_attention_kv_fused as j_flash)
+from parq_tpu.ops.pixel_align import pixel_aligned_features as j_sampler
+
+from parq_torch.geometry import Camera, Pose
+from parq_torch.kernels import (flash_cross_attention_kv_fused,
+                                pixel_aligned_features_kernel, sample_views)
+from parq_torch.kernels.cross_attention import split_kv
+from parq_torch.kernels.pixel_align import project_uvs, sample_views_plain
+from parq_torch.ops.pixel_align import pixel_aligned_features
+
+ATOL = 1e-5
+
+
+def _scene(rng, case, B=2, T=3, H=6, W=8, C=16, Q=12):
+    feats = rng.randn(B, T, H, W, C).astype(np.float32)
+    cam = np.tile(np.array([W, H, 4.0, 4.0, W / 2, H / 2], np.float32),
+                  (B, T, 1))
+    poses = []
+    for t in range(T):
+        th = 0.1 * t
+        R = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                      [-np.sin(th), 0, np.cos(th)]])
+        poses.append(np.concatenate([R.reshape(9), [0.1 * t, 0, 0]]))
+    tcl = np.broadcast_to(np.stack(poses), (B, T, 12)).astype(np.float32)
+    q = rng.rand(B, Q, 3).astype(np.float32) * [6, 4, 2] - [3, 2, -1.5]
+    if case == "off_image":       # most taps fall off the map
+        q[..., :2] *= 3.0
+    elif case == "behind":        # some points behind every camera
+        q[:, ::3, 2] = -2.0
+    elif case == "all_invalid":
+        q[..., 2] = -5.0
+    return feats, q.astype(np.float32), tcl, cam, (W, H)
+
+
+@pytest.mark.parametrize("case", ["mixed", "off_image", "behind",
+                                  "all_invalid"])
+def test_sampler_matches_jax(rng, case):
+    feats, q, tcl, cam, fs = _scene(rng, case)
+    jargs = (jnp.asarray(feats), jnp.asarray(q), JPose(jnp.asarray(tcl)),
+             JCamera(jnp.asarray(cam)), fs)
+    targs = (torch.from_numpy(feats), torch.from_numpy(q),
+             Pose(torch.from_numpy(tcl)), Camera(torch.from_numpy(cam)), fs)
+    want, want_im, want_valid = j_sampler(*jargs)
+    pallas, _, _ = pixel_aligned_features_pallas(*jargs, force=True)
+    for port in (pixel_aligned_features, pixel_aligned_features_kernel):
+        got, got_im, got_valid = port(*targs)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   rtol=0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(pallas),
+                                   atol=ATOL, rtol=0)
+        np.testing.assert_allclose(got_im.numpy(), np.asarray(want_im),
+                                   rtol=1e-6, atol=ATOL)
+        np.testing.assert_array_equal(got_valid.numpy(),
+                                      np.asarray(want_valid))
+    if case == "all_invalid":
+        assert not got_valid.any()
+    else:
+        assert got_valid.any()
+
+
+def test_sampler_sums_invalid_views(rng):
+    """The view sum covers every view; only the divisor counts valid
+    ones. A query valid in one view but with in-image taps in another
+    invalid (off-image) view keeps that view's contribution."""
+    B, T, H, W, C = 1, 2, 4, 4, 8
+    mem = torch.from_numpy(rng.randn(B, T, H, W, C).astype(np.float32))
+    # view 0: inside; view 1: u = -0.5 → invalid, but the tap at x=0 is in
+    uvs = torch.tensor([[[[1.0, 1.0, 1.0, 0.0]], [[-0.5, 2.0, 1.0, 0.0]]]])
+    got = sample_views_plain(mem, uvs)
+    want = mem[0, 0, 1, 1] + 0.5 * mem[0, 1, 2, 0]
+    np.testing.assert_allclose(got[0, 0].numpy(), want.numpy(), atol=ATOL)
+
+
+def test_sample_views_cpu_is_plain(rng):
+    feats, q, tcl, cam, _ = _scene(rng, "mixed")
+    uvs, _, _ = project_uvs(torch.from_numpy(q), Pose(torch.from_numpy(tcl)),
+                            Camera(torch.from_numpy(cam)))
+    mem = torch.from_numpy(feats)
+    before = sample_views.launches
+    torch.testing.assert_close(sample_views(mem, uvs),
+                               sample_views_plain(mem, uvs), rtol=0, atol=0)
+    assert sample_views.launches == before     # plain path: no launch
+
+
+@pytest.mark.parametrize("N", [300, 1000])
+def test_attention_matches_jax(rng, monkeypatch, N):
+    monkeypatch.setenv("PARQ_ATTN_STATICMAX", "0")   # online-max form
+    B, H, Q, D = 2, 2, 16, 128
+    q = rng.randn(B, H, Q, D).astype(np.float32)
+    kv = (rng.randn(B, N, 2 * H * D) * 0.3).astype(np.float32)
+    got = flash_cross_attention_kv_fused(torch.from_numpy(q),
+                                         torch.from_numpy(kv))
+    pallas = j_flash(jnp.asarray(q), jnp.asarray(kv), block_k=128,
+                     interpret=True)
+    k, v = split_kv(torch.from_numpy(kv), H)
+    ref = cross_attention_reference(jnp.asarray(q), jnp.asarray(k.numpy()),
+                                    jnp.asarray(v.numpy()))
+    for want in (pallas, ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   rtol=0)
+

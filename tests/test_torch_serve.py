@@ -1,0 +1,122 @@
+"""The port's HTTP serving (parq_torch/serve.py) on the CPU: /healthz,
+/spec and a padded /detect over a real socket; its detections equal JAX
+parse_pred on the JAX model's outputs with the same weights."""
+import io
+import json
+import threading
+import urllib.error
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from parq_tpu.evals.parse_pred import parse_pred as j_parse_pred
+from parq_tpu.io.torch_convert import convert_parq_checkpoint
+from parq_tpu.train.checkpoint import _merge
+
+from parq_torch.config import ModelConfig, ServeConfig
+from parq_torch.data.synthetic import make_batch
+from parq_torch.models import BATCH_KEYS
+from parq_torch.serve import Engine, build_server
+
+from test_torch_model import jax_forward, jax_tiny_model, numpy_state_dict
+
+BATCH = 2   # served batch; requests send B=1 (the padding path)
+# random-init scores are arbitrary: keep every box that survives NMS
+CFG = ServeConfig(model=ModelConfig.tiny(), conf_thresh=0.0)
+SEED = 3    # weights whose boxes for the request below pass the track scale
+
+
+@pytest.fixture(scope="module")
+def server():
+    srv = build_server(Engine(CFG, batch_size=BATCH, device="cpu", seed=SEED))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    yield srv
+    srv.shutdown()
+    srv.server_close()
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+def _url(srv, path):
+    host, port = srv.server_address
+    return f"http://{host}:{port}{path}"
+
+
+def _get(srv, path):
+    with urllib.request.urlopen(_url(srv, path), timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def _post(srv, arrays):
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    req = urllib.request.Request(_url(srv, "/detect"), data=buf.getvalue(),
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _jax_detections(engine, request):
+    """JAX model + JAX parse_pred on the padded request, same weights."""
+    jmodel = jax_tiny_model(CFG.model)
+    padded = {k: np.concatenate([request[k]] * BATCH) for k in BATCH_KEYS}
+    init = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                {k: jnp.asarray(padded[k])
+                                 for k in BATCH_KEYS})
+    tree = convert_parq_checkpoint(numpy_state_dict(engine.model),
+                                   num_heads=CFG.model.dec_heads)
+    variables = {"params": _merge(init["params"], tree["params"]),
+                 "frozen": _merge(init["frozen"], tree["frozen"])}
+    out = jax_forward(jmodel, variables, padded)
+    last = {k: v[-1] for k, v in out.items()}
+    host = j_parse_pred(last, jnp.asarray(padded["T_world_local"]),
+                        CFG.track_scale, CFG.model.num_semcls,
+                        enable_nms=True)
+    keep = np.where(host["pred_mask"][0]
+                    & (host["scores"][0] >= CFG.conf_thresh))[0]
+    center = np.asarray(last["center_unnormalized"])[0]
+    return [(int(host["labels"][0, k]), float(host["scores"][0, k]),
+             center[k], host["corners_world"][0, k]) for k in keep]
+
+
+def test_healthz_and_spec(server):
+    assert _get(server, "/healthz") == (200, {"status": "ok"})
+    status, spec = _get(server, "/spec")
+    assert status == 200 and spec["batch_size"] == BATCH
+    W, H = CFG.model.image_size
+    assert spec["inputs"]["rgb_img"]["shape"] == [BATCH, 3, H, W, 3]
+    assert sorted(spec["inputs"]) == sorted(BATCH_KEYS)
+
+
+def test_padded_detect_matches_jax(server):
+    batch = make_batch([11], image_size=CFG.model.image_size)
+    request = {k: batch[k] for k in BATCH_KEYS}
+    status, body = _post(server, request)
+    assert status == 200, body
+    assert len(body["detections"]) == 1          # padding dropped
+    got = body["detections"][0]
+    want = _jax_detections(server.engine, request)
+    assert len(want) > 0                          # not vacuous
+    assert [d["label"] for d in got] == [w[0] for w in want]
+    for d, (_, score, center, corners) in zip(got, want):
+        np.testing.assert_allclose(d["score"], score, atol=1e-4)
+        np.testing.assert_allclose(d["center"], center, atol=1e-4)
+        np.testing.assert_allclose(d["corners_world"], corners, atol=1e-4)
+
+
+def test_detect_rejects_bad_requests(server):
+    batch = make_batch([0], image_size=CFG.model.image_size)
+    bad = {k: batch[k] for k in BATCH_KEYS}
+    bad["camera"] = bad["camera"][:, :2]
+    assert _post(server, bad)[0] == 400
+    big = make_batch([0, 1, 2], image_size=CFG.model.image_size)
+    assert _post(server, {k: big[k] for k in BATCH_KEYS})[0] == 400
+    missing = {k: batch[k] for k in BATCH_KEYS[1:]}
+    assert _post(server, missing)[0] == 400
