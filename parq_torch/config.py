@@ -36,11 +36,13 @@ class ModelConfig:
     scale: Tuple[float, ...] = RELEASE_SCALE
     mean_size_path: Optional[str] = MEAN_SIZE_PATH
     compute_dtype: str = "float32"                # or "bfloat16"
+    dropout_rate: float = 0.1                     # decoder, training only
+    batched_grad: bool = True                     # the two-phase fold
 
     @classmethod
     def tiny(cls, **overrides) -> "ModelConfig":
         """`_flagship_model(tiny=True)`: resnet18, 64x48, 2 iterations of
-        8 queries at width 32."""
+        8 queries at width 32, dropout 0.1."""
         kw = dict(resnet_name="resnet18", image_size=(64, 48),
                   num_samples=8, fpn_channels=8, tokenizer_out_channels=32,
                   dec_dim=32, dec_heads=4, dec_ffn_dim=16, dec_layers=2,

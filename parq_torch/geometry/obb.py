@@ -1,12 +1,15 @@
 """Oriented 3D boxes as flat (..., 19) tensors
 ``[bb3_object (6), T_world_object (12), sem_id (1)]`` — the parts of
-parq_tpu/geometry/obb.py that parse_pred uses."""
+parq_tpu/geometry/obb.py that parse_pred and the loss's parse_targets
+use."""
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
 import torch
+
+from .pose import Pose
 
 MAX_BOXES = 100
 MAX_SYMS = 50
@@ -31,12 +34,37 @@ class Obb3D:
                               sem_id.to(bb3_object.dtype)], dim=-1))
 
     @property
+    def bb3_object(self) -> torch.Tensor:
+        return self.data[..., :6]
+
+    @property
     def bb3_min_object(self) -> torch.Tensor:
         return self.data[..., 0:6:2]
 
     @property
     def bb3_max_object(self) -> torch.Tensor:
         return self.data[..., 1:6:2]
+
+    @property
+    def bb3_center_object(self) -> torch.Tensor:
+        return 0.5 * (self.bb3_min_object + self.bb3_max_object)
+
+    @property
+    def bb3_size(self) -> torch.Tensor:
+        return self.bb3_max_object - self.bb3_min_object
+
+    @property
+    def T_world_object(self) -> Pose:
+        return Pose(self.data[..., 6:18])
+
+    @property
+    def sem_id(self) -> torch.Tensor:
+        """(..., 1) float semantic id (−1 for pad)."""
+        return self.data[..., 18:19]
+
+    def valid_mask(self) -> torch.Tensor:
+        """(...,) bool — True for real boxes, False for all −1 pad rows."""
+        return ~torch.all(self.data == -1.0, dim=-1)
 
     @property
     def corners_object(self) -> torch.Tensor:

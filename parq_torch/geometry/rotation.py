@@ -1,4 +1,5 @@
-"""ortho6d → rotation matrix (port of parq_tpu/geometry/rotation.py)."""
+"""ortho6d → rotation matrix, and the rotation about y (port of
+parq_tpu/geometry/rotation.py)."""
 from __future__ import annotations
 
 import torch
@@ -15,3 +16,12 @@ def rotation_matrix_from_ortho6d(ortho6d: torch.Tensor) -> torch.Tensor:
     z = _normalize(torch.linalg.cross(x, ortho6d[..., 3:6], dim=-1))
     y = torch.linalg.cross(z, x, dim=-1)
     return torch.stack([x, y, z], dim=-1)
+
+
+def roty(t: torch.Tensor) -> torch.Tensor:
+    """Rotation about the y axis, (...) angles → (..., 3, 3)."""
+    c, s = torch.cos(t), torch.sin(t)
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([c, zero, s], -1),
+                        torch.stack([zero, one, zero], -1),
+                        torch.stack([-s, zero, c], -1)], dim=-2)

@@ -19,6 +19,10 @@ layout. It inverts parq_tpu/io/torch_convert.py:convert_parq_checkpoint:
 - ``refpoint`` → ``box3d_decoder.refpoint.weight``.
 
 The dead ``decoder.norm`` of released checkpoints has no counterpart.
+
+`grads_from_flax` maps a params-only tree, such as `jax.grad`'s output,
+the same way: it has no FrozenBN statistics, and it yields the port's
+parameter names only (no buffers).
 """
 from __future__ import annotations
 
@@ -43,7 +47,17 @@ def _get(tree: Mapping, path: str) -> np.ndarray:
 
 
 def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    params, frozen = variables["params"], variables.get("frozen", {})
+    return _from_flax(variables["params"], variables.get("frozen", {}))
+
+
+def grads_from_flax(grad_tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A params-only tree (e.g. `jax.grad`'s) → {port parameter name:
+    tensor}."""
+    return _from_flax(grad_tree, None)
+
+
+def _from_flax(params: Mapping, frozen) -> Dict[str, torch.Tensor]:
+    """`frozen` None: a params-only tree; the BN statistics are skipped."""
     sd: Dict[str, np.ndarray] = {}
 
     def linear(path_f, key_t, perm=(1, 0)):
@@ -56,6 +70,8 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
         linear(path_f, key_t, perm=(3, 2, 0, 1))
 
     def frozen_bn(path_f, key_t):
+        if frozen is None:
+            return
         for src, dst in (("scale", "weight"), ("bias", "bias"),
                          ("mean", "running_mean"), ("var", "running_var")):
             sd[f"{key_t}.{dst}"] = _get(frozen, f"{path_f}/{src}")

@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-SOURCES = ("pixel_align", "cross_attention")
+SOURCES = ("pixel_align", "pixel_align_bwd", "cross_attention")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "parq_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

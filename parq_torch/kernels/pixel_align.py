@@ -1,15 +1,25 @@
-"""Kernel B1 — pixel-aligned sampler forward (``csrc/pixel_align.cu``).
+"""Kernels B1 and B4 — the pixel-aligned sampler, forward
+(``csrc/pixel_align.cu``) and d(memory) (``csrc/pixel_align_bwd.cu``).
 
-Replaces parq_tpu/kernels/pixel_align_pallas.py:_pallas_sample. The
-projection to ``(u, v, scale)`` stays plain torch outside the kernel, as
-``_project_uvs`` does in JAX; the kernel gathers the bilinear taps of every
-view, scales and sums them. `sample_views` launches the CUDA kernel for a
-CUDA tensor (or raises) and runs `sample_views_plain` for a CPU tensor.
+B1 replaces parq_tpu/kernels/pixel_align_pallas.py:_pallas_sample, B4
+its _pallas_sample_bwd_mem. The projection to ``(u, v, scale)`` stays plain
+torch outside the kernels, as ``_project_uvs`` does in JAX; B1 gathers the
+bilinear taps of every view, scales and sums them, and B4 scatters a
+cotangent back onto the taps. Each wrapper (`sample_views`,
+`sample_views_bwd_mem`) launches its CUDA kernel for a CUDA tensor (or
+raises) and runs its plain version for a CPU tensor.
+
+The training entries mirror the JAX package's custom VJPs:
+`pixel_aligned_features_train` (forward B1, backward B4;
+`_sample_op_fast`) and `pixel_aligned_features_precomputed` (forward
+returns saved features, backward B4; `_sample_op_pre`). Their d(uvs) comes
+from torch autograd of `sample_views_plain` with the memory held fixed, on
+the first `diff_rows` query rows only.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -99,4 +109,154 @@ def pixel_aligned_features_kernel(
     uvs, center_im, center_valid = project_uvs(query_pos, T_camera_local,
                                                camera)
     feats = sample_views(memory_hw.contiguous(), uvs)
+    return feats.to(memory_hw.dtype), center_im, center_valid
+
+
+def sample_views_bwd_mem_plain(uvs: torch.Tensor, g: torch.Tensor,
+                               mem_shape, dtype) -> torch.Tensor:
+    """Plain version of kernel B4: uvs (B, T, Q, 4), g (B, Q, C) →
+    d(memory) (B, T, H, W, C) in `dtype`. g is rounded to `dtype` first, as
+    the kernel's caller does; the sums are f32 (index_add_)."""
+    B, T, H, W, C = mem_shape
+    Q = uvs.shape[2]
+    gq = g.to(dtype).float()[:, None].expand(B, T, Q, C)
+    x0, y0 = torch.floor(uvs[..., 0]), torch.floor(uvs[..., 1])
+    wx1, wy1 = uvs[..., 0] - x0, uvs[..., 1] - y0
+    bt = torch.arange(B * T, device=uvs.device).view(B, T, 1)
+    out = torch.zeros(B * T * H * W, C, dtype=torch.float32,
+                      device=uvs.device)
+    for dy, wy in ((0, 1.0 - wy1), (1, wy1)):
+        for dx, wx in ((0, 1.0 - wx1), (1, wx1)):
+            x, y = x0 + dx, y0 + dy
+            inb = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)
+            idx = (bt * H + y.clamp(0, H - 1).long()) * W \
+                + x.clamp(0, W - 1).long()
+            w = (wx * wy * uvs[..., 2]) * inb
+            out.index_add_(0, idx.reshape(-1),
+                           (gq * w[..., None]).reshape(-1, C))
+    return out.view(B, T, H, W, C).to(dtype)
+
+
+def _lib_bwd():
+    lib = _build.load("pixel_align_bwd")
+    fn = lib.parq_sample_views_bwd_mem
+    if fn.argtypes is None:   # declare once: pointers must not pass as int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def sample_views_bwd_mem(uvs: torch.Tensor, g: torch.Tensor, mem_shape,
+                         dtype) -> torch.Tensor:
+    """Kernel B4. uvs (B, T, Q, 4) f32, g (B, Q, C) → d(memory)
+    (B, T, H, W, C) in `dtype` (bf16 or f32). g is cast to `dtype` before
+    the kernel, as JAX does; the kernel sums in an f32 scratch with
+    atomics, cast once at the end. CPU tensors take the plain version."""
+    if uvs.device.type == "cpu":
+        return sample_views_bwd_mem_plain(uvs, g, mem_shape, dtype)
+    B, T, H, W, C = mem_shape
+    Q = uvs.shape[2]
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"sample_views_bwd_mem: memory dtype {dtype}")
+    if uvs.dtype != torch.float32 or tuple(uvs.shape) != (B, T, Q, 4):
+        raise ValueError(f"sample_views_bwd_mem: uvs {uvs.dtype} "
+                         f"{tuple(uvs.shape)}")
+    if tuple(g.shape) != (B, Q, C) or g.device != uvs.device:
+        raise ValueError(f"sample_views_bwd_mem: g {tuple(g.shape)} on "
+                         f"{g.device}")
+    if C % 8:
+        raise ValueError("sample_views_bwd_mem: needs C % 8 == 0")
+    uvs, g = uvs.contiguous(), g.to(dtype).contiguous()
+    dmem = torch.zeros(mem_shape, dtype=torch.float32, device=uvs.device)
+    if any(t.data_ptr() % 16 for t in (uvs, g, dmem)):
+        raise ValueError("sample_views_bwd_mem: inputs must be 16-byte "
+                         "aligned")
+    stream = torch.cuda.current_stream(uvs.device).cuda_stream
+    err = _lib_bwd()(uvs.data_ptr(), g.data_ptr(), dmem.data_ptr(), B, T, H,
+                     W, C, Q, int(dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError(f"sample_views_bwd_mem: CUDA launch failed, "
+                           f"error {err}")
+    sample_views_bwd_mem.launches += 1
+    return dmem.to(dtype)
+
+
+sample_views_bwd_mem.launches = 0
+
+
+def _sampler_backward(memory, uvs, g, diff_rows):
+    """(d memory by B4, d uvs by autograd of the plain gather on the first
+    `diff_rows` rows, the memory held fixed)."""
+    dmem = sample_views_bwd_mem(uvs, g, memory.shape, memory.dtype)
+    R = uvs.shape[2] if diff_rows is None else min(diff_rows, uvs.shape[2])
+    duvs = torch.zeros_like(uvs)
+    with torch.enable_grad():
+        u = uvs[:, :, :R].detach().requires_grad_(True)
+        out = sample_views_plain(memory.detach(), u)
+        duvs[:, :, :R], = torch.autograd.grad(out, u, g[:, :R].float())
+    return dmem, duvs
+
+
+class _SampleTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, memory, uvs, diff_rows):
+        ctx.save_for_backward(memory, uvs)
+        ctx.diff_rows = diff_rows
+        return sample_views(memory, uvs)
+
+    @staticmethod
+    def backward(ctx, g):
+        memory, uvs = ctx.saved_tensors
+        dmem, duvs = _sampler_backward(memory, uvs, g, ctx.diff_rows)
+        return dmem, duvs, None
+
+
+class _SamplePrecomputed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, memory, uvs, feats, diff_rows):
+        ctx.save_for_backward(memory, uvs)
+        ctx.diff_rows = diff_rows
+        return feats.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        memory, uvs = ctx.saved_tensors
+        dmem, duvs = _sampler_backward(memory, uvs, g, ctx.diff_rows)
+        return dmem, duvs, None, None
+
+
+def pixel_aligned_features_train(
+    memory_hw: torch.Tensor,
+    query_pos: torch.Tensor,
+    T_camera_local: Pose,
+    camera: Camera,
+    feat_size: Tuple[int, int],
+    diff_rows: Optional[int] = None,
+):
+    """`pixel_aligned_features_kernel` with a gradient: forward B1,
+    backward B4 for d(memory) and autograd for d(query_pos)."""
+    uvs, center_im, center_valid = project_uvs(query_pos, T_camera_local,
+                                               camera)
+    feats = _SampleTrain.apply(memory_hw.contiguous(), uvs, diff_rows)
+    return feats.to(memory_hw.dtype), center_im, center_valid
+
+
+def pixel_aligned_features_precomputed(
+    memory_hw: torch.Tensor,
+    query_pos: torch.Tensor,
+    T_camera_local: Pose,
+    camera: Camera,
+    feat_size: Tuple[int, int],
+    feats_pre: torch.Tensor,
+    diff_rows: Optional[int] = None,
+):
+    """The sampler with its forward skipped: `feats_pre` is the (B, Q, C)
+    output of an identical earlier call. The projection reruns (cheap; it
+    keeps the query-coordinate gradient exact) and the backward is B4 plus
+    the coordinate VJP on the first `diff_rows` rows."""
+    uvs, center_im, center_valid = project_uvs(query_pos, T_camera_local,
+                                               camera)
+    feats = _SamplePrecomputed.apply(memory_hw.contiguous(), uvs,
+                                     feats_pre.detach().float(), diff_rows)
     return feats.to(memory_hw.dtype), center_im, center_valid

@@ -21,7 +21,9 @@ import torch.nn.functional as F
 class GroupNorm1(nn.Module):
     """torch GroupNorm(1, C) on (B, N, C) tokens: normalize over (N, C)
     jointly with per-channel affine. Statistics in f32; the output keeps
-    the input dtype."""
+    the input dtype. `n_groups > 1`: the token axis folds n_groups decoder
+    iterations (the batched-gradient training path), and the statistics
+    are taken per group, so the folded call matches per-iteration calls."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -29,11 +31,12 @@ class GroupNorm1(nn.Module):
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(dim=(1, 2), keepdim=True)
-        var = (xf - mean).square().mean(dim=(1, 2), keepdim=True)
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
+    def forward(self, x: torch.Tensor, n_groups: int = 1) -> torch.Tensor:
+        B, N, C = x.shape
+        xf = x.float().view(B, n_groups, N // n_groups, C)
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).view(B, N, C)
         return (y * self.weight + self.bias).to(x.dtype)
 
 
@@ -67,9 +70,10 @@ class HeadMLP(nn.Module):
         layers.append(Conv1x1(c, output_dim))
         self.layers = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, n_groups: int = 1) -> torch.Tensor:
         for layer in self.layers[:-1]:
-            x = layer(x)
+            x = layer(x, n_groups) if isinstance(layer, GroupNorm1) \
+                else layer(x)
         with torch.autocast(x.device.type, enabled=False):
             return self.layers[-1](x.float())
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -42,15 +42,19 @@ class PARQModel(nn.Module):
         self.box3d_decoder = PARQDecoder(
             cfg.dec_dim, cfg.dec_heads, cfg.dec_ffn_dim, cfg.dec_layers,
             cfg.num_queries, cfg.num_semcls, cfg.scale, cfg.feat_size,
-            mean_size=torch.from_numpy(mean))
+            mean_size=torch.from_numpy(mean), dropout_rate=cfg.dropout_rate,
+            batched_grad=cfg.batched_grad)
 
-    def forward(self, batch: Dict[str, torch.Tensor]
+    def forward(self, batch: Dict[str, torch.Tensor],
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """batch: rgb_img (B, T, H, W, 3) in [0, 1], camera (B, T, 6),
         T_camera_pseudoCam / T_world_pseudoCam (B, T, 12),
         T_world_local (B, 1, 12). bf16 runs under autocast; geometry,
         norms' statistics, the sampler's sums and the heads' outputs stay
-        f32."""
+        f32. `deterministic=False` is the training forward, with the
+        decoder's dropout drawn from `generator`."""
         dev = batch["rgb_img"].device
         bf16 = self.cfg.compute_dtype == "bfloat16"
         ctx = (torch.autocast(dev.type, dtype=torch.bfloat16) if bf16
@@ -62,7 +66,9 @@ class PARQModel(nn.Module):
             Twl = Pose(batch["T_world_local"])
             encoding = self.add_ray_pe(camera, Tcp, Twp, Twl)
             memory = self.backbone2d(batch["rgb_img"]) + encoding
-            return self.box3d_decoder(memory, camera, Tcp, Twp, Twl)
+            return self.box3d_decoder(memory, camera, Tcp, Twp, Twl,
+                                      deterministic=deterministic,
+                                      generator=generator)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
