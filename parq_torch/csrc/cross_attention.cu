@@ -1,5 +1,9 @@
 // Kernels B2 and B3: flash cross-attention over the fused K/V buffer,
-// forward and backward, for Hopper (sm_90a).
+// forward and backward, for Hopper (sm_90a). This file holds the C entry
+// points, the dispatch by dtype and head dim, the exact-f32 SIMT kernels
+// and the mma.sync bf16 kernels of the small head dims; the bf16 kernels of
+// the release head dim (D = 256) are in flash_fwd_sm90.cu (B2) and
+// flash_bwd_sm90.cu (B3), on hopper.cuh's wgmma and TMA building blocks.
 //
 // B2 replaces parq_tpu/kernels/cross_attention_pallas.py:_fwd_call (:457),
 // body _fwd_kernel (:120), in two forms:
@@ -40,17 +44,18 @@
 // K/V: 0.12 ms of bf16 tensor-core time vs 0.14 ms of memory time, so
 // bytes, by a little.
 //
-// bf16 (the serving path) — flash_fwd_bf16_kernel: both products on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate). One CTA of
-// 4 warps per (b, h, 64-query tile); each warp owns 16 query rows. KV
-// blocks of 64 tokens are double-buffered in shared memory with cp.async,
-// so the next block's loads overlap this block's products. Scores stay in
-// registers: the S accumulator fragment of QK^T is, after the softmax and
-// a round to bf16, exactly the A fragment of PV (the FlashAttention-2
-// register reuse), so P never touches shared memory. V's B fragments come
-// through ldmatrix.trans. Rows are padded by 16 bytes in shared memory so
-// the fragment loads of a warp hit 32 distinct banks. O (16 x D per warp)
-// stays in registers for the whole KV loop and is written once.
+// bf16 at D = 256 (the serving and training paths) — flash_fwd_sm90.cu:
+// wgmma.mma_async on TMA-fed, 128-byte-swizzled shared-memory tiles, two
+// consumer warpgroups per 128 q rows, the KV range split over CTAs where one
+// CTA per q tile would leave SMs idle. Its head comment has the design.
+//
+// bf16 at D = 64 and 128 (tiny configurations, tests) —
+// flash_fwd_bf16_kernel: both products with mma.sync m16n8k16 (bf16 in, f32
+// accumulate). One CTA of 4 warps per (b, h, 64-query tile); KV blocks of
+// 64 tokens double-buffered with cp.async; the S accumulator fragment,
+// rounded to bf16, is the A fragment of PV; V's B fragments come through
+// ldmatrix.trans; rows padded by 16 bytes against bank conflicts. The
+// choice between the two is static, by head dim (dispatch_fwd below).
 //
 // f32 (the parity path) — flash_fwd_f32_kernel: SIMT f32 FMA, exact f32
 // products. One CTA of 8 warps per (b, h, 32-query tile); lane j of a warp
@@ -63,37 +68,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr float kMaskValue = -1e30f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// Dropout of the train form. `thresh` == 0 means no dropout.
-struct Dropout {
-  const int* seeds;   // (G,) device seeds, one per group of `group_rows`
-  int group_rows;     // Q / G
-  uint32_t thresh;    // min(floor(rate * 2^32), 2^32 - 1)
-  float keep_scale;   // 1 / (1 - rate)
-};
-
-// h0 of a global q row: seed of its group ^ the (b*H + h) term
-__device__ __forceinline__ uint32_t row_h0(const Dropout& d, int bh,
-                                           int row) {
-  const uint32_t seed = static_cast<uint32_t>(d.seeds[row / d.group_rows]);
-  return seed * 2654435761u ^ static_cast<uint32_t>(bh) * 2246822519u;
-}
-
-// murmur3 fmix32 of (h0, group-local row, global col): the v1 hash
-__device__ __forceinline__ bool keep_bit(uint32_t h0, uint32_t row,
-                                         uint32_t col, uint32_t thresh) {
-  uint32_t h = h0 + row * 3266489917u + col * 668265263u;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h >= thresh;
-}
+using parq::Dropout;
+using parq::kLn2;
+using parq::kLog2e;
+using parq::kMaskValue;
+using parq::keep_bit;
+using parq::row_h0;
 
 // ------------------------------------------------------------ bf16 path --
 namespace tc {
@@ -859,22 +843,23 @@ cudaError_t launch(const void* q, const void* kv, const void* dout,
 
 }  // namespace bwd
 
-// bf16 B3 on the tensor cores: the same two passes as `bwd`, every product
-// an mma.sync m16n8k16 (bf16 in, f32 accumulate), the FlashAttention-2
-// backward's register reuse:
+// bf16 B3 at D = 256 (the training path) is flash_bwd_sm90.cu: the same two
+// passes on wgmma.mma_async with TMA-fed shared-memory rings; its head
+// comment has the design. bf16 B3 at D = 64 and 128 (tiny configurations,
+// tests) runs `tcb` below, chosen statically by head dim (dispatch_bwd_d):
+// the same two passes, every product an mma.sync m16n8k16 (bf16 in, f32
+// accumulate) with the FlashAttention-2 backward's register reuse:
 //   - dkv pass: one CTA of 8 warps per (b, h, 64-token KV block). Warp w
 //     owns tokens 16*(w%4) .. +15 and columns (w/4)*D/2 .. +D/2 of dK and
-//     dV (64 + 64 f32 registers at D=256). K and V of the block stay in
-//     shared memory; q and do come in 32-row steps, double-buffered with
-//     cp.async. Each warp computes S^T = K Q^T and dW^T = V dO^T for its
-//     16 tokens, so the C fragments of P^T and dS^T are, rounded to bf16,
-//     the A fragments of dV += W^T dO and dK += dS^T Q (B operands through
-//     ldmatrix.trans). The two warps of a token group both compute its
-//     S^T and dW^T: 6 products' worth of work for 4, bought to keep the
-//     accumulators in registers.
+//     dV. K and V of the block stay in shared memory; q and do come in
+//     32-row steps, double-buffered with cp.async. Each warp computes
+//     S^T = K Q^T and dW^T = V dO^T for its 16 tokens, so the C fragments of
+//     P^T and dS^T are, rounded to bf16, the A fragments of dV += W^T dO and
+//     dK += dS^T Q (B operands through ldmatrix.trans). The two warps of a
+//     token group both compute its S^T and dW^T.
 //   - dq pass: one CTA of 4 warps per (b, h, 64-row q tile) walking
-//     32-token KV blocks (double-buffered), as the forward does: S = Q K^T
-//     and dW = dO V^T, dS in registers, dQ += dS K.
+//     32-token KV blocks (double-buffered): S = Q K^T and dW = dO V^T, dS in
+//     registers, dQ += dS K.
 // p = exp2(s * sm_scale * log2 e - lse * log2 e); masked rows and tokens
 // get p = 0 (rows past Q have lse = 1e30 and delta = 0).
 namespace tcb {
@@ -889,7 +874,6 @@ using tc::pack_bf16;
 using tc::row_stride;
 typedef __nv_bfloat16 bf16;
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kKVT = 64;  // dkv pass: tokens per CTA (4 groups of 16)
 constexpr int kQS = 32;   // dkv pass: q rows per step
 constexpr int kQT = 64;   // dq pass: q rows per CTA (4 warps of 16)
@@ -1281,41 +1265,62 @@ cudaError_t launch(const void* q, const void* kv, const void* dout,
 
 }  // namespace tcb
 
+// Forward: f32 -> simt (exact f32); bf16 at D = 256 -> the wgmma kernel of
+// flash_fwd_sm90.cu (the only one that takes splits > 1); bf16 at D = 64,
+// 128 -> tc (mma.sync). A static choice by dtype and head dim.
 template <int D>
 cudaError_t dispatch_fwd(const void* q, const void* kv, void* o, float* lse,
-                         Dropout drop, int B, int H, int Q, int N,
-                         int is_bf16, cudaStream_t s) {
-  const float qscale = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  if (lse == nullptr)  // eval form
-    return is_bf16
-        ? tc::launch<D, false>(q, kv, o, lse, drop, B, H, Q, N, qscale, s)
-        : simt::launch<D, false>(q, kv, o, lse, drop, B, H, Q, N, qscale, s);
-  return is_bf16
-      ? tc::launch<D, true>(q, kv, o, lse, drop, B, H, Q, N, qscale, s)
+                         float* scratch, int splits, Dropout drop, int B,
+                         int H, int Q, int N, int is_bf16, cudaStream_t s) {
+  const float qscale = kLog2e / sqrtf(static_cast<float>(D));
+  if constexpr (D == parq::sm90::kD) {
+    if (is_bf16) {
+      float* part_lse = scratch == nullptr ? nullptr
+          : scratch + (long long)splits * B * H * Q * D;
+      return parq::sm90::flash_fwd(q, kv, o, lse, scratch, part_lse, splits,
+                                   drop, B, H, Q, N, s);
+    }
+  } else {
+    if (is_bf16 && splits == 1)
+      return lse == nullptr
+          ? tc::launch<D, false>(q, kv, o, lse, drop, B, H, Q, N, qscale, s)
+          : tc::launch<D, true>(q, kv, o, lse, drop, B, H, Q, N, qscale, s);
+  }
+  if (is_bf16 || splits != 1) return cudaErrorInvalidValue;
+  return lse == nullptr
+      ? simt::launch<D, false>(q, kv, o, lse, drop, B, H, Q, N, qscale, s)
       : simt::launch<D, true>(q, kv, o, lse, drop, B, H, Q, N, qscale, s);
 }
 
 cudaError_t fwd(const void* q, const void* kv, void* o, float* lse,
-                Dropout drop, int B, int H, int Q, int N, int D, int is_bf16,
-                void* stream) {
+                void* scratch, int splits, Dropout drop, int B, int H, int Q,
+                int N, int D, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
   switch (D) {
-    case 64: return dispatch_fwd<64>(q, kv, o, lse, drop, B, H, Q, N, is_bf16, s);
-    case 128: return dispatch_fwd<128>(q, kv, o, lse, drop, B, H, Q, N, is_bf16, s);
-    case 256: return dispatch_fwd<256>(q, kv, o, lse, drop, B, H, Q, N, is_bf16, s);
+    case 64: return dispatch_fwd<64>(q, kv, o, lse, sc, splits, drop, B, H, Q, N, is_bf16, s);
+    case 128: return dispatch_fwd<128>(q, kv, o, lse, sc, splits, drop, B, H, Q, N, is_bf16, s);
+    case 256: return dispatch_fwd<256>(q, kv, o, lse, sc, splits, drop, B, H, Q, N, is_bf16, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// Backward: f32 -> bwd (SIMT); bf16 at D = 256 -> flash_bwd_sm90.cu (wgmma);
+// bf16 at D = 64, 128 -> tcb (mma.sync).
 template <int D>
 cudaError_t dispatch_bwd_d(const void* q, const void* kv, const void* dout,
                            const float* lse, const float* delta, Dropout drop,
                            void* dq, void* dkv, int B, int H, int Q, int N,
                            int is_bf16, cudaStream_t s) {
-  return is_bf16
-      ? tcb::launch<D>(q, kv, dout, lse, delta, drop, dq, dkv, B, H, Q, N, s)
-      : bwd::launch<D>(q, kv, dout, lse, delta, drop, dq, dkv, B, H, Q, N,
-                       s);
+  if (!is_bf16)
+    return bwd::launch<D>(q, kv, dout, lse, delta, drop, dq, dkv, B, H, Q, N,
+                          s);
+  if constexpr (D == parq::sm90::kD)
+    return parq::sm90::flash_bwd(q, kv, dout, lse, delta, drop, dq, dkv, B, H,
+                                 Q, N, s);
+  else
+    return tcb::launch<D>(q, kv, dout, lse, delta, drop, dq, dkv, B, H, Q, N,
+                          s);
 }
 
 cudaError_t bwd_all(const void* q, const void* kv, const void* dout,
@@ -1334,14 +1339,18 @@ cudaError_t bwd_all(const void* q, const void* kv, const void* dout,
 
 // q (B, H, Q, D) and o (B, H, Q, D) contiguous, kv (B, N, H*2D) contiguous,
 // all bf16 (is_bf16=1) or all f32; D in {64, 128, 256}; N >= 1; every
-// pointer 16-byte aligned. Returns the launch's cudaError_t
-// (cudaErrorInvalidValue for an unsupported D).
+// pointer 16-byte aligned. splits (1..4) cuts the KV range over that many
+// CTAs per q tile: above 1 only for bf16 at D = 256, with scratch of
+// splits * B*H*Q * (D + 1) floats (the f32 partials, then their logsumexp),
+// and no split may be left without a 64-token block. Returns the launch's
+// cudaError_t (cudaErrorInvalidValue for an unsupported combination).
 extern "C" int parq_flash_fwd_kv_fused(const void* q, const void* kv, void* o,
-                                       int B, int H, int Q, int N, int D,
+                                       void* scratch, int splits, int B,
+                                       int H, int Q, int N, int D,
                                        int is_bf16, void* stream) {
   const Dropout none{nullptr, 1, 0u, 1.f};
-  return static_cast<int>(
-      fwd(q, kv, o, nullptr, none, B, H, Q, N, D, is_bf16, stream));
+  return static_cast<int>(fwd(q, kv, o, nullptr, scratch, splits, none, B, H,
+                              Q, N, D, is_bf16, stream));
 }
 
 // The train form of B2: as parq_flash_fwd_kv_fused, and also lse (B, H, Q)
@@ -1351,12 +1360,13 @@ extern "C" int parq_flash_fwd_kv_fused(const void* q, const void* kv, void* o,
 // from the double rate so the threshold matches the JAX package's exactly.
 extern "C" int parq_flash_fwd_kv_fused_lse(
     const void* q, const void* kv, void* o, void* lse, const void* seeds,
-    int B, int H, int Q, int N, int D, int group_rows, unsigned thresh,
-    float keep_scale, int is_bf16, void* stream) {
+    void* scratch, int splits, int B, int H, int Q, int N, int D,
+    int group_rows, unsigned thresh, float keep_scale, int is_bf16,
+    void* stream) {
   const Dropout drop{static_cast<const int*>(seeds), group_rows, thresh,
                      keep_scale};
-  return static_cast<int>(fwd(q, kv, o, static_cast<float*>(lse), drop, B, H,
-                              Q, N, D, is_bf16, stream));
+  return static_cast<int>(fwd(q, kv, o, static_cast<float*>(lse), scratch,
+                              splits, drop, B, H, Q, N, D, is_bf16, stream));
 }
 
 // B3. q, dout, dq (B, H, Q, D) and kv, dkv (B, N, H*2D) contiguous, all
@@ -1375,4 +1385,14 @@ extern "C" int parq_flash_bwd_kv_fused(
   const float* dl = static_cast<const float*>(delta);
   return static_cast<int>(
       bwd_all(q, kv, dout, l, dl, drop, dq, dkv, B, H, Q, N, D, is_bf16, s));
+}
+
+// hopper.cuh's building blocks on one tile (see parq::sm90::wgmma_selftest):
+// a, b (64, 64) and v (64, 256) bf16; c1 (64, 64) and c2 (64, 256) f32.
+extern "C" int parq_wgmma_selftest(const void* a, const void* b,
+                                   const void* v, void* c1, void* c2,
+                                   void* stream) {
+  return static_cast<int>(parq::sm90::wgmma_selftest(
+      a, b, v, static_cast<float*>(c1), static_cast<float*>(c2),
+      static_cast<cudaStream_t>(stream)));
 }

@@ -7,7 +7,14 @@
 | cross_attention_pallas._bwd_call    | cross_attention.flash_bwd (B3)        |
 | pixel_align_pallas._pallas_sample_bwd_mem | pixel_align.sample_views_bwd_mem (B4) |
 
-Each wrapper counts its launches in a ``launches`` attribute.
+B2 and B3 in bf16 at the release head dim (256) are the Hopper kernels of
+``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (wgmma on TMA-fed
+shared-memory rings, the forward's KV range split over CTAs by
+`cross_attention.kv_splits`); f32, and bf16 at head dims 64 and 128, run
+the SIMT and mma.sync kernels of ``csrc/cross_attention.cu``.
+
+Each wrapper counts its launches in a ``launches`` attribute (a split
+forward with its combine kernel is one launch).
 `SERVE_KERNELS` are the ones a forward for serving launches; the training
 step launches all but the eval form of B2.
 """

@@ -1,16 +1,21 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
-Each ``parq_torch/csrc/<name>.cu`` compiles on first use into its own
-shared library with a plain C interface::
+Each library of `LIBRARIES` is built on first use from its
+``parq_torch/csrc/*.cu`` sources into one shared library with a plain C
+interface: one ``nvcc -c`` per source, all started together, then one link::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas=-v -o build/parq_torch/<name>-<hash>.so
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas=-v -c -o <lib>-<hash>.<source>.o <source>.cu
+    nvcc -shared -o build/parq_torch/<lib>-<hash>.so <lib>-<hash>.*.o
 
-The file name carries a hash of the source and the flags, so an edited
-source builds anew and an unchanged one is reused. `build_all` starts one
-nvcc per missing source, all at once, and waits for them together. The
-compiler's report (registers, shared memory, spills per kernel) is kept
-beside each library as ``<name>-<hash>.log``.
+Nothing links against libcuda: the one call into it that the kernels need
+(cuTensorMapEncodeTiled, for the TMA tensor maps) is fetched at run time
+through cudaGetDriverEntryPoint (csrc/hopper.cuh). The file name carries a
+hash of the library's sources, every header in csrc/ and the flags, so an
+edited source builds anew and an unchanged one is reused. The compiler's
+report (registers, shared memory, spills and `setmaxnreg` warnings per
+kernel: look for "spill" and "setmaxnreg ignored") is kept beside each
+library as ``<lib>-<hash>.log``.
 """
 from __future__ import annotations
 
@@ -24,11 +29,17 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-SOURCES = ("pixel_align", "pixel_align_bwd", "cross_attention")
+LIBRARIES = {
+    "pixel_align": ("pixel_align",),
+    "pixel_align_bwd": ("pixel_align_bwd",),
+    "cross_attention": ("cross_attention", "flash_fwd_sm90",
+                        "flash_bwd_sm90"),
+}
+SOURCES = tuple(LIBRARIES)
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "parq_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -48,35 +59,59 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in LIBRARIES[name]:
+        h.update((CSRC / f"{src}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> float:
-    """Compile every source in `names` that has no library yet, one nvcc
-    process each, all started together. Returns the wall seconds spent;
-    raises with the compiler's output if any build fails."""
+    """Build every library in `names` that is not built yet: one nvcc
+    process per source, all started together, then a link per library.
+    Returns the wall seconds spent; raises with the compiler's output if
+    any build fails."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
+    libs = []
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, out, tmp, proc))
+        jobs = []
+        for src in LIBRARIES[name]:
+            obj = out.with_suffix(f".{src}.{os.getpid()}.o")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                   str(CSRC / f"{src}.cu")]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        libs.append((name, out, jobs))
     failed = []
-    for name, out, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
-            continue
-        os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
+    for name, out, jobs in libs:
+        logs, ok = [], True
+        for src, obj, proc in jobs:
+            log, _ = proc.communicate()
+            logs.append(f"--- {src}.cu (nvcc exit {proc.returncode})\n{log}")
+            ok = ok and proc.returncode == 0
+        objs = [str(obj) for _, obj, _ in jobs]
+        if ok:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            link = subprocess.run(
+                [_nvcc(), "-shared", "-o", str(tmp), *objs],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(f"--- link (nvcc exit {link.returncode})\n"
+                        f"{link.stdout}")
+            ok = link.returncode == 0
+            if ok:   # atomic: a concurrent loader sees all or none
+                os.replace(tmp, out)
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        out.with_suffix(".log").write_text("\n".join(logs))
+        if not ok:
+            failed.append(f"=== {name}\n" + "\n".join(logs))
     if failed:
         raise RuntimeError("parq_torch: kernel build failed\n"
                            + "\n".join(failed))

@@ -19,6 +19,13 @@ The three autograd entries of the JAX package sit on top of them:
 `flash_cross_attention_kv_fused_precomputed` (forward returns the saved o,
 backward B3).
 
+For bf16 at the release head dim (D = 256) the kernels are the Hopper
+ones (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``: wgmma on
+TMA-fed shared-memory rings), and the forward may split the KV range over
+several CTAs per q tile (`kv_splits`) and merge the partials in a combine
+kernel; `merge_partials` and `cross_attention_kv_fused_split_plain` are the
+plain version of that. A split forward and its combine count as one launch.
+
 Dropout is the JAX package's v1 counter hash of (seed, b·H + h,
 group-local row, global kv column) (`_keep_mask`, :58-117), bit for bit:
 `keep_mask` is its plain version. The v2 hash (PARQ_DROPOUT_HASH=v2) is not
@@ -34,6 +41,9 @@ import torch
 from . import _build
 
 HEAD_DIMS = (64, 128, 256)  # head dims the CUDA kernel is built for
+SPLIT_HEAD_DIM = 256        # the head dim whose bf16 forward can split KV
+MAX_SPLITS = 4              # most KV splits the forward takes
+_Q_TILE, _KV_BLOCK = 128, 64   # the Hopper forward's CTA tile
 
 
 def split_kv(kv: torch.Tensor, heads: int):
@@ -150,6 +160,53 @@ def cross_attention_kv_fused_train_plain(q: torch.Tensor, kv: torch.Tensor,
     return o, lse
 
 
+def merge_partials(parts):
+    """LSE-weighted merge of attention partials over disjoint token
+    ranges: parts is a sequence of (o_i (..., Q, D), lse_i (..., Q)), each
+    o_i normalised within its range and lse_i its natural-log logsumexp.
+    Returns (o f32, lse f32) with w_i = exp(lse_i − max lse),
+    o = Σ w_i o_i / Σ w_i, lse = max + log Σ w_i: the arithmetic of the JAX
+    package's `_merge_partials` (parallel/seq_parallel.py:78-91) and of
+    the forward's combine kernel."""
+    lses = torch.stack([l.float() for _, l in parts])
+    m = lses.max(dim=0).values
+    w = torch.exp(lses - m)
+    num = sum(o.float() * w[i][..., None] for i, (o, _) in enumerate(parts))
+    den = w.sum(dim=0)
+    return num / den[..., None], m + torch.log(den)
+
+
+def split_bounds(N: int, splits: int):
+    """The token ranges [(n0, n1), ...] the forward gives its `splits`
+    CTAs: runs of ⌈blocks/splits⌉ whole 64-token blocks, the last ragged."""
+    nblocks = -(-N // _KV_BLOCK)
+    per = -(-nblocks // splits) * _KV_BLOCK
+    return [(n0, min(N, n0 + per)) for n0 in range(0, N, per)]
+
+
+def cross_attention_kv_fused_split_plain(q: torch.Tensor, kv: torch.Tensor,
+                                         seeds: torch.Tensor, rate: float,
+                                         bounds):
+    """Plain version of the split-KV forward: the plain attention over each
+    token range of `bounds`, merged by `merge_partials`. Dropout draws with
+    the GLOBAL kv column, so the kept set is that of the unsplit form.
+    Returns (o in q's dtype, lse (B, H, Q) f32)."""
+    B, H, Q, D = q.shape
+    k, v = split_kv(kv, H)
+    parts = []
+    for n0, n1 in bounds:
+        s = (q.float() @ k[:, :, n0:n1].float().transpose(-1, -2)) * D ** -0.5
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - lse[..., None])
+        if rate > 0.0:
+            keep = torch.stack([_keep_rows(seeds, b, H, Q, n1, rate)
+                                for b in range(B)])[..., n0:n1]
+            p = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
+        parts.append((p @ v[:, :, n0:n1].float(), lse))
+    o, lse = merge_partials(parts)
+    return o.to(q.dtype), lse
+
+
 def cross_attention_kv_fused_bwd_plain(q, kv, do, lse, delta, seeds,
                                        rate: float):
     """Plain version of B3: (dq in q's dtype, dKV (B, N, H·2D) in kv's
@@ -191,9 +248,44 @@ def _fn(name: str, n_ptr: int, tail):
     return fn
 
 
-def _lib():
-    return _fn("parq_flash_fwd_kv_fused", 3,
-               [ctypes.c_int] * 6 + [ctypes.c_void_p])
+def kv_splits(B: int, H: int, group_rows: int, N: int, sms: int) -> int:
+    """How many CTAs share the KV range of one q tile in the Hopper
+    forward. A fixed rule: the largest count, at most MAX_SPLITS, that keeps
+    B·H·⌈group_rows/128⌉·splits CTAs within the card's `sms` SMs, and never
+    more than there are 64-token blocks. It depends on the rows of ONE seed
+    group, not on Q, so a folded call of G groups takes the split of each
+    of its G separate calls and sums in their order (bit for bit equal)."""
+    ctas = B * H * -(-group_rows // _Q_TILE)
+    nblocks = -(-N // _KV_BLOCK)
+    splits = max(1, min(MAX_SPLITS, sms // ctas, nblocks))
+    return len(split_bounds(N, splits))   # drop splits left without a block
+
+
+def _splits_for(q: torch.Tensor, N: int, group_rows: int, splits) -> int:
+    """The forward's KV split for this call: 1 except for bf16 at D = 256;
+    `splits` overrides the rule (tests hold every split against plain)."""
+    B, H, Q, D = q.shape
+    if q.dtype != torch.bfloat16 or D != SPLIT_HEAD_DIM:
+        if splits not in (None, 1):
+            raise ValueError("flash: only the bf16 D=256 forward splits KV")
+        return 1
+    if splits is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        return kv_splits(B, H, group_rows, N, sms)
+    if not 1 <= splits <= MAX_SPLITS or \
+            len(split_bounds(N, splits)) != splits:
+        raise ValueError(f"flash: splits={splits} for N={N}")
+    return splits
+
+
+def _scratch(q: torch.Tensor, splits: int):
+    """The combine kernel's input: `splits` f32 partials of o, then their
+    logsumexp rows. None for an unsplit call."""
+    if splits == 1:
+        return None
+    B, H, Q, D = q.shape
+    return torch.empty(splits * B * H * Q * (D + 1), dtype=torch.float32,
+                       device=q.device)
 
 
 _DROP_ARGS = [ctypes.c_int, ctypes.c_uint32, ctypes.c_float]
@@ -225,28 +317,32 @@ def _drop_args(seeds: torch.Tensor, Q: int, rate: float):
     return (Q // seeds.numel(), dropout_threshold(rate), 1.0 / (1.0 - rate))
 
 
-def flash_cross_attention_kv_fused(q: torch.Tensor,
-                                   kv: torch.Tensor) -> torch.Tensor:
+def flash_cross_attention_kv_fused(q: torch.Tensor, kv: torch.Tensor
+                                   ) -> torch.Tensor:
     """Kernel B2. q (B, H, Q, D), kv (B, N, H·2D), both bf16 or both f32
     → o (B, H, Q, D) in q's dtype. CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return cross_attention_kv_fused_plain(q, kv)
+    return _flash_fwd(q, kv, None)
+
+
+def _flash_fwd(q: torch.Tensor, kv: torch.Tensor, splits: Optional[int]
+               ) -> torch.Tensor:
+    """B2's launch on CUDA tensors. `splits` None takes `kv_splits`; the
+    tests give a number to hold every split against the plain version."""
+    _check(q, kv, "flash")
     B, H, Q, D = q.shape
-    if kv.dim() != 3 or kv.shape[0] != B or kv.shape[2] != 2 * H * D:
-        raise ValueError(f"flash: kv {tuple(kv.shape)} vs q {tuple(q.shape)}")
-    if q.dtype not in (torch.bfloat16, torch.float32) or kv.dtype != q.dtype:
-        raise TypeError(f"flash: dtypes q {q.dtype}, kv {kv.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash: head dim {D} not in {HEAD_DIMS}")
-    if kv.device != q.device or kv.shape[1] < 1:
-        raise ValueError("flash: kv must be non-empty and on q's device")
     q, kv = q.contiguous(), kv.contiguous()
     o = torch.empty_like(q)
-    if any(t.data_ptr() % 16 for t in (q, kv, o)):
-        raise ValueError("flash: inputs must be 16-byte aligned")
+    _aligned("flash", q, kv, o)
+    splits = _splits_for(q, kv.shape[1], Q, splits)
+    scratch = _scratch(q, splits)
+    fn = _fn("parq_flash_fwd_kv_fused", 4,
+             [ctypes.c_int] * 7 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib()(q.data_ptr(), kv.data_ptr(), o.data_ptr(), B, H, Q,
-                 kv.shape[1], D, int(q.dtype == torch.bfloat16), stream)
+    err = fn(q.data_ptr(), kv.data_ptr(), o.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), splits, B, H,
+             Q, kv.shape[1], D, int(q.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"flash: CUDA launch failed, error {err}")
     flash_cross_attention_kv_fused.launches += 1
@@ -263,6 +359,12 @@ def flash_fwd_lse(q: torch.Tensor, kv: torch.Tensor, seeds: torch.Tensor,
     dtype, lse (B, H, Q) f32). CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return cross_attention_kv_fused_train_plain(q, kv, seeds, rate)
+    return _flash_fwd_lse(q, kv, seeds, rate, None)
+
+
+def _flash_fwd_lse(q: torch.Tensor, kv: torch.Tensor, seeds: torch.Tensor,
+                   rate: float, splits: Optional[int]):
+    """The train form's launch on CUDA tensors; `splits` as in `_flash_fwd`."""
     _check(q, kv, "flash_fwd_lse")
     B, H, Q, D = q.shape
     seeds = seeds.to(device=q.device, dtype=torch.int32).contiguous()
@@ -270,14 +372,18 @@ def flash_fwd_lse(q: torch.Tensor, kv: torch.Tensor, seeds: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Q, dtype=torch.float32, device=q.device)
     _aligned("flash_fwd_lse", q, kv, o, lse)
-    fn = _fn("parq_flash_fwd_kv_fused_lse", 5,
-             [ctypes.c_int] * 5 + _DROP_ARGS + [ctypes.c_int,
+    group_rows, thresh, keep_scale = _drop_args(seeds, Q, rate)
+    splits = _splits_for(q, kv.shape[1], group_rows, splits)
+    scratch = _scratch(q, splits)
+    fn = _fn("parq_flash_fwd_kv_fused_lse", 6,
+             [ctypes.c_int] * 6 + _DROP_ARGS + [ctypes.c_int,
                                                 ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), kv.data_ptr(), o.data_ptr(), lse.data_ptr(),
-             seeds.data_ptr(), B, H, Q, kv.shape[1], D,
-             *_drop_args(seeds, Q, rate), int(q.dtype == torch.bfloat16),
-             stream)
+             seeds.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), splits, B, H,
+             Q, kv.shape[1], D, group_rows, thresh, keep_scale,
+             int(q.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"flash_fwd_lse: CUDA launch failed, error {err}")
     flash_fwd_lse.launches += 1
@@ -326,6 +432,26 @@ def flash_bwd(q: torch.Tensor, kv: torch.Tensor, do: torch.Tensor,
 
 
 flash_bwd.launches = 0
+
+
+def wgmma_selftest(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor):
+    """The Hopper kernels' building blocks on one tile, on the card: a, b
+    (64, 64) and v (64, 256) bf16 → (c1 (64, 64) f32 = a @ bᵀ through
+    shared-memory K-major descriptors, c2 (64, 256) f32 = bf16(c1) @ v with
+    c1 from registers and v read MN-major)."""
+    for t, shape in ((a, (64, 64)), (b, (64, 64)), (v, (64, 256))):
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16 or \
+                tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError("wgmma_selftest: contiguous bf16 CUDA tensors "
+                             "(64, 64), (64, 64), (64, 256)")
+    c1 = torch.empty(64, 64, dtype=torch.float32, device=a.device)
+    c2 = torch.empty(64, 256, dtype=torch.float32, device=a.device)
+    fn = _fn("parq_wgmma_selftest", 6, [])
+    err = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), c1.data_ptr(),
+             c2.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"wgmma_selftest: CUDA launch failed, error {err}")
+    return c1, c2
 
 
 def _backward(q, kv, seeds, o, lse, rate, do):

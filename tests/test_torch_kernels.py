@@ -1,7 +1,9 @@
 """The plain versions of the port's two kernels against the JAX package:
 sampler (B1) vs ops/pixel_align.py and the Pallas kernel in interpret
 mode; flash cross-attention (B2) vs the fused Pallas forward in interpret
-mode (online-max form) and cross_attention_reference. f32, atol 1e-5."""
+mode (online-max form) and cross_attention_reference; the plain split-KV
+forward (partials over token ranges merged by `merge_partials`) vs the
+same Pallas forward run unsplit. f32, atol 1e-5."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -10,13 +12,16 @@ import torch
 from parq_tpu.geometry import Camera as JCamera, Pose as JPose
 from parq_tpu.kernels import pixel_aligned_features_pallas
 from parq_tpu.kernels.cross_attention_pallas import (
-    cross_attention_reference, flash_cross_attention_kv_fused as j_flash)
+    cross_attention_reference, flash_cross_attention_kv_fused as j_flash,
+    flash_cross_attention_kv_fused_fwd_lse as j_fwd_lse)
 from parq_tpu.ops.pixel_align import pixel_aligned_features as j_sampler
 
 from parq_torch.geometry import Camera, Pose
 from parq_torch.kernels import (flash_cross_attention_kv_fused,
                                 pixel_aligned_features_kernel, sample_views)
-from parq_torch.kernels.cross_attention import split_kv
+from parq_torch.kernels.cross_attention import (
+    MAX_SPLITS, cross_attention_kv_fused_split_plain, kv_splits,
+    split_bounds, split_kv)
 from parq_torch.kernels.pixel_align import project_uvs, sample_views_plain
 from parq_torch.ops.pixel_align import pixel_aligned_features
 
@@ -111,3 +116,43 @@ def test_attention_matches_jax(rng, monkeypatch, N):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                    rtol=0)
 
+
+
+@pytest.mark.parametrize("splits", [2, 3, 4])
+def test_split_forward_matches_jax_unsplit(rng, monkeypatch, splits):
+    """The split-KV forward's plain version (one partial per run of whole
+    64-token blocks, the last ragged, merged by `merge_partials`) against
+    the JAX flash kernel run unsplit: o and lse, f32, atol 1e-5."""
+    monkeypatch.setenv("PARQ_ATTN_STATICMAX", "0")   # online-max form
+    B, H, Q, N, D = 2, 2, 16, 500, 64
+    q = rng.randn(B, H, Q, D).astype(np.float32)
+    kv = (rng.randn(B, N, 2 * H * D) * 0.5).astype(np.float32)
+    bounds = split_bounds(N, splits)
+    assert len(bounds) == splits and bounds[-1] == (bounds[-1][0], N)
+    assert (bounds[-1][1] - bounds[-1][0]) % 64        # the ragged run
+    o, lse = cross_attention_kv_fused_split_plain(
+        torch.from_numpy(q), torch.from_numpy(kv),
+        torch.zeros(1, dtype=torch.int32), 0.0, bounds)
+    jo, jl = j_fwd_lse(jnp.asarray(q), jnp.asarray(kv), block_k=128,
+                       interpret=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl)[..., 0],
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("B,H,rows,N,sms,want", [
+    (8, 4, 256, 14400, 132, 2),    # release serving and phase-1 training
+    (8, 4, 2048, 14400, 132, 1),   # one unfolded group of 2048 rows
+    (1, 4, 256, 14400, 132, 4),    # few CTAs: the cap
+    (1, 4, 256, 100, 132, 2),      # never more splits than 64-token blocks
+    (2, 4, 200, 40, 132, 1),
+])
+def test_kv_split_rule(B, H, rows, N, sms, want):
+    """`kv_splits` is a fixed function of the shape and the SM count, and
+    every split it names owns at least one block."""
+    got = kv_splits(B, H, rows, N, sms)
+    assert got == want and 1 <= got <= MAX_SPLITS
+    bounds = split_bounds(N, got)
+    assert len(bounds) == got and bounds[0][0] == 0 and bounds[-1][1] == N
+    assert all(a < b for a, b in bounds)
+    assert all(a % 64 == 0 for a, _ in bounds)

@@ -23,6 +23,7 @@ from parq_tpu.kernels.pixel_align_pallas import (_pallas_sample_bwd_mem,
 
 from parq_torch.kernels import flash_fwd_lse, sample_views_bwd_mem
 from parq_torch.kernels.cross_attention import (
+    cross_attention_kv_fused_split_plain,
     cross_attention_kv_fused_train_plain,
     flash_cross_attention_kv_fused_fwd_lse,
     flash_cross_attention_kv_fused_precomputed,
@@ -55,6 +56,27 @@ def test_keep_mask_is_the_jax_kernels_bits(rng, G):
     port = port.reshape(B, H, Q, N).numpy()
     np.testing.assert_array_equal(port, jax_keep)
     assert 0.6 < port.mean() < 0.8          # measured: the rate is honoured
+
+
+@pytest.mark.parametrize("bounds", [
+    [(0, 20), (20, 48)], [(0, 16), (16, 32), (32, 41)],
+    [(0, 16), (16, 32), (32, 48), (48, 60)]])
+def test_split_forward_keeps_the_unsplit_mask(rng, bounds):
+    """(a) the split-KV plain forward under dropout draws with the GLOBAL
+    kv column: its kept set is exactly the unsplit plain form's (and so
+    the JAX kernel's), and o and lse agree to 1e-6."""
+    B, H, Q, D, rate = 2, 2, 16, 64, 0.1
+    N = bounds[-1][1]
+    q, kv = _unit_v_inputs(rng, B, H, Q, N, D)
+    seeds = torch.tensor([123457, 124434], dtype=torch.int32)
+    args = (torch.from_numpy(q), torch.from_numpy(kv), seeds, rate)
+    o, lse = cross_attention_kv_fused_train_plain(*args)
+    o_s, lse_s = cross_attention_kv_fused_split_plain(*args, bounds)
+    kept = o[..., :N] != 0.0
+    assert torch.equal(o_s[..., :N] != 0.0, kept)
+    assert 0.8 < kept.float().mean() < 0.97
+    torch.testing.assert_close(o_s, o, rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse_s, lse, rtol=0, atol=1e-6)
 
 
 def test_folded_call_equals_separate_calls(rng):
