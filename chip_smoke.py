@@ -17,12 +17,16 @@ Phases, each printed on its own line; any failure exits non-zero:
                equal bit for bit; B3 (flash backward) at Q=2048, G=8, with
                dropout 0.1 and 0, and at a ragged N; B2, B2-train and B3 at
                a Q that does not divide the 128-row tile (200) and an N
-               below one KV tile (40); B4 (sampler d(memory)) at Q=2048;
+               below one KV tile (40); B4 (sampler d(memory)) at Q=2048 in
+               bf16 and f32 on three distributions of the rows (the
+               decoder's, every row in one 8x8 patch, every row off the
+               image), two launches equal bit for bit;
   4. serve   — an Engine at the release config (ResNet50, 3 x 320x240,
                L=8, Q=256, dim 1024, B=8, bf16) answers 3 /detect requests
                over HTTP; every output is finite, each serving kernel's
-               launch count rose by exactly 8 per request and no training
-               kernel launched;
+               launch count rose by exactly 8 per request, no training
+               kernel launched, and the token memory the sampler reads came
+               in bf16;
   5. parity  — the same seeded weights and batch, B=1 f32, TF32 off: the
                card's forward (kernels) against the port's CPU forward
                (plain versions), atol 2e-3, every output of the last
@@ -30,7 +34,8 @@ Phases, each printed on its own line; any failure exits non-zero:
   6. train   — the release model at B=8 in bf16, dropout 0.1, AdamW at lr
                1e-4 with a global-norm clip of 1.0, 5 steps through
                parq_torch.train's train_step on synthetic batches: finite
-               losses and gradient norms, the parameters moved, and per
+               losses and gradient norms, the parameters moved, the token
+               memory in bf16 (so B1 and B4 ran their bf16 forms), and per
                step B1 8, B2-train 8, B3 1 and B4 1 launches; step ms from
                CUDA events after a warm-up step, and a profile of one step;
   7. train-parity — B=1, f32, TF32 off, dropout 0, release widths at L=2:
@@ -40,8 +45,9 @@ Phases, each printed on its own line; any failure exits non-zero:
                host's work included) and a profile of one forward; per
                kernel device ms (CUDA-graph replay; the library's dropout
                and backward calls by CUDA events), launches on its path,
-               bound ms, plain ms and the library call's ms; B3's two
-               passes from one profiled launch.
+               bound ms, plain ms and the library call's ms; B4 on its
+               three distributions; B3's two passes from one profiled
+               launch.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the parq_torch
 package beside this file, it exits non-zero and prints no result.
@@ -138,6 +144,38 @@ def release_sampler_inputs(cfg, B, dtype, gen):
     return mem, uvs
 
 
+def sampler_bwd_inputs(cfg, B, gen):
+    """B4's inputs at the training fold (Q = L·256 rows: the rows of all L
+    iterations land on one map): the memory's shape, the cotangent g and
+    three distributions of the (u, v, scale) rows: "release", the first
+    iteration's points repeated L times plus one pixel of noise;
+    "clustered", every row of every view inside one 8x8 patch of pixels (one
+    CTA's tile: the longest hit list a map can give); "off-image", no tap
+    inside any map (the result is all zeros)."""
+    mem, uvs = release_sampler_inputs(cfg, B, torch.bfloat16, gen)
+    H, W = mem.shape[2:4]
+    fold = uvs.repeat(1, 1, cfg.dec_layers, 1).contiguous()
+    fold[..., :2] += torch.randn(fold[..., :2].shape, device="cuda",
+                                 generator=gen)
+    g = torch.randn(B, fold.shape[2], mem.shape[-1], device="cuda",
+                    generator=gen)
+    r = torch.rand(2, *fold.shape[:3], 2, device="cuda", generator=gen)
+    clustered, off = fold.clone(), fold.clone()
+    clustered[..., :2] = torch.tensor([32.0, 24.0], device="cuda") + 8 * r[0]
+    off[..., :2] = torch.tensor([W + 0.5, -1.5], device="cuda") \
+        + torch.tensor([100.0, -100.0], device="cuda") * r[1]
+    return mem.shape, g, {"release": fold, "clustered": clustered,
+                          "off-image": off}
+
+
+def rows_in_image(uvs, H, W):
+    """Share of the (u, v) rows with at least one bilinear tap inside an
+    H x W map."""
+    x0, y0 = torch.floor(uvs[..., 0]), torch.floor(uvs[..., 1])
+    return ((x0 >= -1) & (x0 <= W - 1) & (y0 >= -1) & (y0 <= H - 1)
+            ).float().mean().item()
+
+
 def attention_inputs(B, H, Q, N, D, dtype, gen):
     """Logits of std 2 (q ~ 2·N(0,1), k ~ N(0,1), scaled by 1/sqrt(D)): a
     softmax far from uniform, so outputs are O(0.1–1) and an error in the
@@ -202,6 +240,16 @@ def sampler_bwd_bound(uvs, g, mem_shape, dtype):
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = math.prod(mem_shape) * size + g.numel() * size + uvs.numel() * 4
     return _bound(nbytes, 2 * 4 * uvs.shape[0] * T * uvs.shape[2] * C)
+
+
+def watch_memory_dtype(model):
+    """(dtypes, handle): the dtype of the token memory at each call of the
+    model's decoder from now on. The sampler kernels take the memory's
+    dtype, so it decides which form of B1 and B4 the path runs."""
+    seen = []
+    handle = model.box3d_decoder.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].dtype))
+    return seen, handle
 
 
 def _excess(got, want):
@@ -423,24 +471,28 @@ def train_kernels(cfg, gen, N):
             for r in (rate, 0.0):
                 check_backward(q, kvn, seeds8, r, atol, gen)
 
-    # B4 at the fold: the rows of all 8 iterations scatter into one map
-    mem, uvs = release_sampler_inputs(cfg, 8, torch.bfloat16, gen)
-    uvs = uvs.repeat(1, 1, L, 1).contiguous()
-    uvs[..., :2] += torch.randn(uvs[..., :2].shape, device="cuda",
-                                generator=gen)
-    g = torch.randn(8, uvs.shape[2], mem.shape[-1], device="cuda",
-                    generator=gen)
-    for dtype, atol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
-        got = sample_views_bwd_mem(uvs, g, mem.shape, dtype)
-        want = sample_views_bwd_mem_plain(uvs, g, mem.shape, dtype)
-        err, rel = _rel_err(got, want)
-        check(rel <= atol, f"B4 {dtype}: max abs err {err} is {rel} of its "
-              f"max > {atol}")
-        if dtype == torch.bfloat16:
-            errs["B4"] = err
-        phase("kernels", f"B4 {str(dtype)[6:]} dmem {tuple(mem.shape)} "
-              f"Q={uvs.shape[2]}: max abs err {err:.3e} ({rel:.2e} of its "
-              f"max; limit {atol})")
+    # B4 at the fold, on three distributions of the rows
+    mem_shape, g, dists = sampler_bwd_inputs(cfg, 8, gen)
+    for name, uvs in dists.items():
+        for dtype, atol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+            got = sample_views_bwd_mem(uvs, g, mem_shape, dtype)
+            again = sample_views_bwd_mem(uvs, g, mem_shape, dtype)
+            check(torch.equal(got, again), f"B4 {dtype} {name}: two launches "
+                  "on the same inputs differ")
+            del again
+            want = sample_views_bwd_mem_plain(uvs, g, mem_shape, dtype)
+            err, rel = _rel_err(got, want)
+            check(name != "off-image" or not bool(want.any()),
+                  f"B4 {dtype} {name}: the plain result is not all zeros")
+            check(rel <= atol, f"B4 {dtype} {name}: max abs err {err} is "
+                  f"{rel} of its max > {atol}")
+            if dtype == torch.bfloat16 and name == "release":
+                errs["B4"] = err
+            phase("kernels", f"B4 {str(dtype)[6:]} dmem {tuple(mem_shape)} "
+                  f"Q={uvs.shape[2]} {name}: max abs err {err:.3e} "
+                  f"({rel:.2e} of its max; limit {atol}); two launches equal "
+                  "bit for bit")
+            del got, want
     return errs
 
 
@@ -478,9 +530,11 @@ def phase_serve(serve_cfg, batch_size, requests=3):
             list(range(i * batch_size, (i + 1) * batch_size)),
             image_size=cfg.image_size).items() if k in BATCH_KEYS}
             for i in range(requests)]
+        mem_dtypes, hook = watch_memory_dtype(engine.model)
         reset_launch_counts()
         answers = [_post(url + "/detect", b) for b in bodies]
         counts = launch_counts()
+        hook.remove()
     finally:
         server.shutdown()
         server.server_close()
@@ -490,6 +544,9 @@ def phase_serve(serve_cfg, batch_size, requests=3):
         want = cfg.dec_layers * requests if name in SERVE_KERNELS else 0
         check(n == want, f"{name}: {n} launches in {requests} requests, "
               f"want {want}")
+    want_dtype = getattr(torch, cfg.compute_dtype)
+    check(mem_dtypes == [want_dtype] * requests, f"serve: the decoder's "
+          f"memory came as {mem_dtypes}, want {want_dtype} per request")
     n_dets = 0
     for ans in answers:
         check(len(ans["detections"]) == batch_size, "response batch size")
@@ -509,7 +566,8 @@ def phase_serve(serve_cfg, batch_size, requests=3):
             check(bool(torch.isfinite(v).all()), f"non-finite output {k}")
     phase("serve", f"{requests} /detect requests answered, {n_dets} "
           f"detections, outputs finite; launches {counts} "
-          f"({cfg.dec_layers} per request)")
+          f"({cfg.dec_layers} per request); token memory in "
+          f"{cfg.compute_dtype}")
     return engine, counts, requests
 
 
@@ -591,6 +649,7 @@ def phase_train(cfg, steps=5):
           f" s: {cfg.resnet_name} L={cfg.dec_layers} Q={cfg.num_queries} "
           f"dim={cfg.dec_dim} B={B} bfloat16, dropout "
           f"{net.cfg.dropout_rate}, AdamW lr 1e-4, clip 1.0")
+    mem_dtypes, hook = watch_memory_dtype(net)
     reset_launch_counts()
     ms = []
     for step in range(steps):
@@ -607,6 +666,10 @@ def phase_train(cfg, steps=5):
         phase("train", f"step {step}: loss {loss:.5f} grad_norm {norm:.4f} "
               f"valid_bs {float(m['valid_bs']):.0f} ({ms[-1]:.1f} ms)")
     counts = launch_counts()
+    hook.remove()
+    check(mem_dtypes == [torch.bfloat16] * steps, f"train: the decoder's "
+          f"memory came as {mem_dtypes}, want bfloat16 every step (B1 and "
+          "B4 take the memory's dtype)")
     want = {"pixel_align_sample": cfg.dec_layers,
             "flash_cross_attention_fwd": 0,
             "flash_cross_attention_fwd_train": cfg.dec_layers,
@@ -762,20 +825,17 @@ def phase_times(cfg, engine, counts, requests, train_counts, errs):
             ol, (ql, kl, vl), do, retain_graph=True), 5)))
     del ol, ql, kl, vl
 
-    uvf = uvs.repeat(1, 1, L, 1).contiguous()
-    uvf[..., :2] += torch.randn(uvf[..., :2].shape, device="cuda",
-                                generator=gen)
-    g = torch.randn(B, uvf.shape[2], mem.shape[-1], device="cuda",
-                    generator=gen)
-    b4_bound, b4_by = sampler_bwd_bound(uvf, g, mem.shape, mem.dtype)
+    mem_shape, g, dists = sampler_bwd_inputs(cfg, B, gen)
+    uvf = dists["release"]
+    b4_bound, b4_by = sampler_bwd_bound(uvf, g, mem_shape, mem.dtype)
     rows.append(dict(
         name="pixel_align_bwd_mem", route="cuda",
         source="parq_torch/csrc/pixel_align_bwd.cu",
         replaces="parq_tpu/kernels/pixel_align_pallas.py:280",
-        ms=device_ms(lambda: sample_views_bwd_mem(uvf, g, mem.shape,
-                                                  mem.dtype), 10),
+        ms=device_ms(lambda: sample_views_bwd_mem(uvf, g, mem_shape,
+                                                  mem.dtype), 20),
         plain_ms=device_ms(lambda: sample_views_bwd_mem_plain(
-            uvf, g, mem.shape, mem.dtype), 3),
+            uvf, g, mem_shape, mem.dtype), 3),
         bound_ms=b4_bound, bound_by=b4_by,
         library_ms=grid_sampler_bwd_ms(mem, uvf, g)))
     for r in rows[2:]:
@@ -786,6 +846,20 @@ def phase_times(cfg, engine, counts, requests, train_counts, errs):
               f", {r['launches']} launches on its path, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']}")
+    H, W = mem_shape[2:4]
+    phase("times", "B4's rows with a tap inside the image: " + ", ".join(
+        f"{name} {100 * rows_in_image(u, H, W):.1f}%"
+        for name, u in dists.items()))
+    for dtype in (torch.bfloat16, torch.float32):
+        g_cast = g.to(dtype)    # then the wrapper's cast of g is no pass
+        cells = []
+        for name, u in dists.items():
+            whole, kernel = (device_ms(lambda: sample_views_bwd_mem(
+                u, x, mem_shape, dtype), 10) for x in (g, g_cast))
+            cells.append(f"{name} {whole:.4f} [{kernel:.4f}]")
+        phase("times", f"B4 {str(dtype)[6:]} ms/launch by distribution of "
+              "the rows [without the wrapper's cast of g]: "
+              + ", ".join(cells))
     phase("times", f"B2 splits its KV range in "
           f"{_splits_for(q, N, q.shape[2], None)} at q {tuple(q.shape)} (eval "
           f"and train); unsplit it takes "

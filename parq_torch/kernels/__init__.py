@@ -11,7 +11,11 @@ B2 and B3 in bf16 at the release head dim (256) are the Hopper kernels of
 ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (wgmma on TMA-fed
 shared-memory rings, the forward's KV range split over CTAs by
 `cross_attention.kv_splits`); f32, and bf16 at head dims 64 and 128, run
-the SIMT and mma.sync kernels of ``csrc/cross_attention.cu``.
+the SIMT and mma.sync kernels of ``csrc/cross_attention.cu``. B4
+(``csrc/pixel_align_bwd.cu``) is a per-pixel gather: one CTA per 8x8 tile
+of a map lists the query rows that touch the tile and each pixel sums its
+taps in f32 registers in q order and is written once in the memory's
+dtype: no scratch, no atomics, the same bits from run to run.
 
 Each wrapper counts its launches in a ``launches`` attribute (a split
 forward with its combine kernel is one launch).

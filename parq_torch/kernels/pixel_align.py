@@ -4,8 +4,9 @@
 B1 replaces parq_tpu/kernels/pixel_align_pallas.py:_pallas_sample, B4
 its _pallas_sample_bwd_mem. The projection to ``(u, v, scale)`` stays plain
 torch outside the kernels, as ``_project_uvs`` does in JAX; B1 gathers the
-bilinear taps of every view, scales and sums them, and B4 scatters a
-cotangent back onto the taps. Each wrapper (`sample_views`,
+bilinear taps of every view, scales and sums them, and B4 is its transpose
+onto the memory: every output pixel gathers the cotangent rows whose taps
+land on it and is written once. Each wrapper (`sample_views`,
 `sample_views_bwd_mem`) launches its CUDA kernel for a CUDA tensor (or
 raises) and runs its plain version for a CPU tensor.
 
@@ -151,8 +152,10 @@ def sample_views_bwd_mem(uvs: torch.Tensor, g: torch.Tensor, mem_shape,
                          dtype) -> torch.Tensor:
     """Kernel B4. uvs (B, T, Q, 4) f32, g (B, Q, C) → d(memory)
     (B, T, H, W, C) in `dtype` (bf16 or f32). g is cast to `dtype` before
-    the kernel, as JAX does; the kernel sums in an f32 scratch with
-    atomics, cast once at the end. CPU tensors take the plain version."""
+    the kernel, as JAX does; the kernel sums each pixel's taps in f32
+    registers in q order and writes every pixel once in `dtype`, so the
+    result needs no zeroing and is the same bit for bit from run to run.
+    CPU tensors take the plain version."""
     if uvs.device.type == "cpu":
         return sample_views_bwd_mem_plain(uvs, g, mem_shape, dtype)
     B, T, H, W, C = mem_shape
@@ -168,7 +171,7 @@ def sample_views_bwd_mem(uvs: torch.Tensor, g: torch.Tensor, mem_shape,
     if C % 8:
         raise ValueError("sample_views_bwd_mem: needs C % 8 == 0")
     uvs, g = uvs.contiguous(), g.to(dtype).contiguous()
-    dmem = torch.zeros(mem_shape, dtype=torch.float32, device=uvs.device)
+    dmem = torch.empty(mem_shape, dtype=dtype, device=uvs.device)
     if any(t.data_ptr() % 16 for t in (uvs, g, dmem)):
         raise ValueError("sample_views_bwd_mem: inputs must be 16-byte "
                          "aligned")
@@ -179,7 +182,7 @@ def sample_views_bwd_mem(uvs: torch.Tensor, g: torch.Tensor, mem_shape,
         raise RuntimeError(f"sample_views_bwd_mem: CUDA launch failed, "
                            f"error {err}")
     sample_views_bwd_mem.launches += 1
-    return dmem.to(dtype)
+    return dmem
 
 
 sample_views_bwd_mem.launches = 0

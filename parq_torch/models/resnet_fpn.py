@@ -130,6 +130,17 @@ class ResNetBody(nn.Module):
         return feats
 
 
+def _resize(x: torch.Tensor, size, mode: str) -> torch.Tensor:
+    """F.interpolate in the activation's own dtype, as the JAX backbone
+    resizes: CUDA autocast would run it in float32, and the concatenated
+    tokens and everything that reads them (the sampler, its d(memory), the
+    K/V projection's input) would then be float32 under bf16 compute."""
+    with torch.autocast(x.device.type, enabled=False):
+        return F.interpolate(
+            x, size=size, mode=mode,
+            align_corners=False if mode == "bilinear" else None)
+
+
 class FPN(nn.Module):
     """torchvision FeaturePyramidNetwork: 1x1 laterals, top-down nearest
     upsample (torch's src = floor(dst · in/out)) + add, 3x3 smoothing."""
@@ -147,8 +158,7 @@ class FPN(nn.Module):
         outs = [laterals[-1]]
         prev = laterals[-1]
         for lat in laterals[-2::-1]:
-            prev = lat + F.interpolate(prev, size=lat.shape[-2:],
-                                       mode="nearest")
+            prev = lat + _resize(prev, lat.shape[-2:], "nearest")
             outs.insert(0, prev)
         return [m(o) for m, o in zip(self.layer_blocks, outs)]
 
@@ -179,8 +189,6 @@ class ResNetFPN(nn.Module):
         x = x.contiguous(memory_format=torch.channels_last)
         pyr = self.resnet_fpn.fpn(self.resnet_fpn.body(x))
         size = pyr[0].shape[-2:]
-        levels = [pyr[0]] + [
-            F.interpolate(p, size=size, mode="bilinear", align_corners=False)
-            for p in pyr[1:4]]
+        levels = [pyr[0]] + [_resize(p, size, "bilinear") for p in pyr[1:4]]
         v = torch.cat(levels, dim=1).permute(0, 2, 3, 1)   # (BT, h, w, C)
         return v.reshape(B, T, size[0], size[1], v.shape[-1])

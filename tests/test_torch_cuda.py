@@ -235,26 +235,119 @@ def test_flash_backward_matches_plain(gen, dtype, rtol, N, D, Q, G):
                                    atol=rtol * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_sampler_bwd_kernel_matches_plain(gen, dtype):
-    """B4 against its plain version: both sum in f32; atomics change the
-    order, so f32 agrees to 1e-5 and bf16 to one bf16 rounding."""
-    B, T, H, W, C, Q = 2, 3, 12, 16, 64, 37
-    uv = torch.rand(B, T, Q, 2, device="cuda", generator=gen)
-    uv = uv * torch.tensor([W + 6.0, H + 6.0], device="cuda") - 3.0
-    uv[0, :, 0] = 1e6          # far off the image (a point behind the camera)
+def _bwd_uv(case, gen, B, T, H, W, Q):
+    """(B, T, Q, 2) coordinates for B4: random with 3 pixels of margin and
+    one point far off the image; every query on one pixel; the image's and
+    the 8 x 8 tiles' borders; every query off the image."""
+    rand = lambda *s: torch.rand(*s, device="cuda", generator=gen)
+    if case == "random":
+        uv = rand(B, T, Q, 2) * torch.tensor([W + 6.0, H + 6.0],
+                                             device="cuda") - 3.0
+        uv[0, :, 0] = 1e6      # far off the image (a point behind the camera)
+        return uv
+    if case == "one_pixel":
+        return torch.tensor([2.25, 3.5], device="cuda").expand(B, T, Q, 2)
+    if case == "borders":
+        xs = torch.tensor([0.0, W - 1.0, -0.5, W - 0.5, -1.0, float(W), 7.0,
+                           7.5, 8.0], device="cuda")
+        ys = torch.tensor([0.0, H - 1.0, -0.5, H - 0.5, -1.0, float(H), 7.0,
+                           7.5, 8.0], device="cuda")
+        i = torch.arange(Q, device="cuda")
+        return torch.stack([xs[i % 9], ys[(i // 9) % 9]], -1).expand(
+            B, T, Q, 2)
+    assert case == "off_image"
+    return torch.cat([W + 0.5 + 50 * rand(B, T, Q, 1),
+                      -1.5 - 50 * rand(B, T, Q, 1)], -1)
+
+
+def _bwd_inputs(case, gen, B, T, H, W, C, Q):
+    uv = _bwd_uv(case, gen, B, T, H, W, Q)
     scale = torch.rand(B, 1, Q, 1, device="cuda", generator=gen)
     uvs = torch.cat([uv, scale.expand(B, T, Q, 1),
                      torch.zeros(B, T, Q, 1, device="cuda")], -1).contiguous()
-    g = torch.randn(B, Q, C, device="cuda", generator=gen)
+    return uvs, torch.randn(B, Q, C, device="cuda", generator=gen)
+
+
+BWD_CASES = ["random", "one_pixel", "borders", "off_image"]
+# (H, W, C, Q): maps that the 8 x 8 tile does not divide, a C of one 16-byte
+# vector pair, a Q that is no multiple of a warp, Q = 1; a Q beyond one
+# 2048-row chunk of the hit list with a C beyond one 1024-channel slab
+BWD_SHAPES = [(12, 16, 64, 37), (6, 8, 16, 81), (9, 17, 1024, 100),
+              (13, 10, 64, 1), (9, 17, 1032, 4500)]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("H,W,C,Q", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sampler_bwd_kernel_matches_plain(gen, dtype, H, W, C, Q, case):
+    """B4 against its plain version: both sum in f32, in different orders,
+    so f32 agrees to 1e-5 of the largest element and bf16 to one bf16
+    rounding of it (1e-2)."""
+    B, T = 2, 3
+    uvs, g = _bwd_inputs(case, gen, B, T, H, W, C, Q)
     before = sample_views_bwd_mem.launches
     got = sample_views_bwd_mem(uvs, g, (B, T, H, W, C), dtype)
     torch.cuda.synchronize()
     assert sample_views_bwd_mem.launches == before + 1
-    assert got.dtype == dtype
+    assert got.dtype == dtype and got.shape == (B, T, H, W, C)
     want = sample_views_bwd_mem_plain(uvs, g, (B, T, H, W, C), dtype)
-    atol = 1e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    if case == "off_image":
+        assert not got.any() and not want.any()
+        return
+    limit = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=limit * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sampler_bwd_kernel_is_reproducible(gen, dtype, case):
+    """Every pixel's taps are added in q order by one warp, with no
+    atomics: two launches on the same inputs are equal bit for bit, and
+    the result does not depend on what the output buffer held."""
+    B, T, H, W, C, Q = 2, 3, 30, 40, 1024, 2048
+    uvs, g = _bwd_inputs(case, gen, B, T, H, W, C, Q)
+    first = sample_views_bwd_mem(uvs, g, (B, T, H, W, C), dtype)
+    del first
+    # the allocator hands the next call the same block, now full of values
+    torch.empty((B, T, H, W, C), dtype=dtype, device="cuda").fill_(7.0)
+    a = sample_views_bwd_mem(uvs, g, (B, T, H, W, C), dtype)
+    b = sample_views_bwd_mem(uvs, g, (B, T, H, W, C), dtype)
+    assert torch.equal(a, b)
+    want = sample_views_bwd_mem_plain(uvs, g, (B, T, H, W, C), dtype)
+    limit = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(a.float(), want.float(), rtol=0,
+                               atol=limit * float(want.abs().max()))
+
+
+def test_sampler_bwd_kernel_ignores_nan_rows(gen):
+    """A NaN coordinate fails the float bounds test and adds nothing."""
+    B, T, H, W, C, Q = 1, 2, 12, 16, 64, 40
+    uvs, g = _bwd_inputs("random", gen, B, T, H, W, C, Q)
+    want = sample_views_bwd_mem_plain(uvs[:, :, 8:].contiguous(), g[:, 8:],
+                                      (B, T, H, W, C), torch.float32)
+    uvs[:, :, :8, :2] = float("nan")
+    got = sample_views_bwd_mem(uvs, g, (B, T, H, W, C), torch.float32)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_backbone_tokens_keep_the_compute_dtype(gen):
+    """Under bf16 autocast the backbone's tokens are bf16, as in the JAX
+    model, so the sampler kernels run their bf16 forms (CUDA autocast runs
+    F.interpolate in float32; the backbone resizes outside it). Against
+    the f32 run: a few bf16 roundings of the largest token."""
+    from parq_torch.models.resnet_fpn import ResNetFPN
+    net = ResNetFPN("resnet18", 32).cuda().eval()
+    images = torch.rand(1, 2, 64, 96, 3, device="cuda", generator=gen)
+    with torch.inference_mode():
+        want = net(images)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got = net(images)
+    assert want.dtype == torch.float32 and got.dtype == torch.bfloat16
+    assert got.shape == want.shape == (1, 2, 16, 24, 128)
+    torch.testing.assert_close(got.float(), want, rtol=0,
+                               atol=5e-2 * float(want.abs().max()))
 
 
 def test_train_wrappers_reject_what_the_kernels_do_not_take(gen):

@@ -5,10 +5,14 @@ the CPU (the Pallas kernels in interpret mode):
 (b) B2's train form (o, lse) against `flash_cross_attention_kv_fused_fwd_lse`;
 (c) B3 through the port's autograd entries against `jax.vjp` of
     `flash_cross_attention_kv_fused_train`, dropout 0.3 in 2 seed groups;
-(d) B4 against `_pallas_sample_bwd_mem`, and the sampler's whole backward
-    (d memory, d uvs on the first `diff_rows` rows) against
+(d) B4 against `_pallas_sample_bwd_mem`, also on the inputs that are
+    delicate for a per-pixel gather (one pixel, image and tile borders, all
+    off the image, Q = 1) and on random small shapes, and the sampler's
+    whole backward (d memory, d uvs on the first `diff_rows` rows) against
     `_sample_fast_bwd`.
 """
+import hypothesis
+import hypothesis.strategies as st
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -190,6 +194,80 @@ def test_sampler_bwd_mem_matches_jax(rng):
                                   mem.shape, jnp.float32)
     got = sample_views_bwd_mem(torch.from_numpy(uvs), torch.from_numpy(g),
                                mem.shape, torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+def _uvs_rows(uv, rng):
+    """(B, T, Q, 2) coordinates -> (B, T, Q, 4) rows with a per-query scale."""
+    B, T, Q, _ = uv.shape
+    scale = np.broadcast_to(rng.rand(B, 1, Q, 1) + 0.25, (B, T, Q, 1))
+    return np.concatenate([uv, scale, np.zeros((B, T, Q, 1))], -1
+                          ).astype(np.float32)
+
+
+def _delicate_uv(case, rng, B, T, H, W):
+    """Coordinates that a per-pixel gather must get right: see the cases
+    of `test_sampler_bwd_mem_delicate_inputs_match_jax`."""
+    if case == "one_pixel":
+        return np.broadcast_to([2.25, 3.5], (B, T, 40, 2))
+    if case == "borders":
+        # exactly on the first and last pixel, half a pixel outside them
+        # (one tap row or column in, one out), and around x, y = 8, where
+        # the card's 8 x 8 tiles meet
+        xs = [0.0, W - 1.0, -0.5, W - 0.5, -1.0, float(W), 7.0, 7.5, 8.0]
+        ys = [0.0, H - 1.0, -0.5, H - 0.5, -1.0, float(H), 7.0, 7.5, 8.0]
+        grid = np.array([(x, y) for x in xs for y in ys])
+        return np.broadcast_to(grid, (B, T, len(grid), 2))
+    if case == "off_image":
+        uv = np.stack([W + 0.5 + 50 * rng.rand(B, T, 24),
+                       -1.5 - 50 * rng.rand(B, T, 24)], -1)
+        uv[0, :, 0] = [1e6, -3e5]
+        uv[0, :, 1] = [-1.0 - 1e-3, 3.0]     # just past the last tap column
+        return uv
+    assert case == "single_query"
+    return rng.rand(B, T, 1, 2) * [W - 1.0, H - 1.0]
+
+
+@pytest.mark.parametrize("case", ["one_pixel", "borders", "off_image",
+                                  "single_query"])
+def test_sampler_bwd_mem_delicate_inputs_match_jax(rng, case):
+    """(d) B4's plain version against the Pallas kernel, f32, atol 1e-5, on
+    every query landing on one pixel; coordinates exactly on 0, W-1, H-1,
+    just outside them and at a tile border; every query off the image (the
+    result is all zeros); Q = 1."""
+    B, T, H, W, C = 2, 3, 12, 16, 16
+    uvs = _uvs_rows(_delicate_uv(case, rng, B, T, H, W), rng)
+    g = rng.randn(B, uvs.shape[2], C).astype(np.float32)
+    want = np.asarray(_pallas_sample_bwd_mem(
+        jnp.asarray(uvs), jnp.asarray(g), (B, T, H, W, C), jnp.float32))
+    got = sample_views_bwd_mem(torch.from_numpy(uvs), torch.from_numpy(g),
+                               (B, T, H, W, C), torch.float32).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    if case == "off_image":
+        assert not got.any() and not want.any()
+    else:
+        assert np.abs(got).max() > 0.1
+    if case == "one_pixel":        # 4 taps: pixels (2..3, 3..4), nothing else
+        touched = np.abs(got).sum(-1) > 0
+        assert touched.sum() == B * T * 4 and touched[:, :, 3:5, 2:4].all()
+
+
+@hypothesis.settings(max_examples=8, deadline=None, derandomize=True)
+@hypothesis.given(B=st.integers(1, 2), T=st.integers(1, 3),
+                  H=st.integers(1, 11), W=st.integers(2, 18),
+                  Q=st.integers(1, 40), seed=st.integers(0, 2 ** 16))
+def test_sampler_bwd_mem_random_shapes_match_jax(B, T, H, W, Q, seed):
+    """(d) the same agreement, f32, atol 1e-5, over random small
+    (B, T, H, W, Q), coordinates from 3 pixels outside the image inwards."""
+    rng = np.random.RandomState(seed)
+    uv = rng.rand(B, T, Q, 2) * [W + 6.0, H + 6.0] - 3.0
+    uvs = _uvs_rows(uv, rng)
+    g = rng.randn(B, Q, 8).astype(np.float32)
+    want = _pallas_sample_bwd_mem(jnp.asarray(uvs), jnp.asarray(g),
+                                  (B, T, H, W, 8), jnp.float32)
+    got = sample_views_bwd_mem(torch.from_numpy(uvs), torch.from_numpy(g),
+                               (B, T, H, W, 8), torch.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=0)
 
