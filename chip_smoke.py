@@ -47,7 +47,23 @@ Phases, each printed on its own line; any failure exits non-zero:
                and backward calls by CUDA events), launches on its path,
                bound ms, plain ms and the library call's ms; B4 on its
                three distributions; B3's two passes from one profiled
-               launch.
+               launch;
+  9. fit     — `python -m parq_torch.cli.train` in-process on
+               configs/train.yaml at release width in bf16 on synthetic
+               snippets (32 to train, 8 to validate: the loaders' defaults
+               for DATA_PATH synthetic), B=8, 2 epochs, validation every
+               half epoch: 8 steps, 4 validations and the final one on the
+               best checkpoint. Finite losses; per step B1 8, B2-train 8, B3
+               1 and B4 1 launches, per validation B1 and B2 8 each and
+               nothing else; the token memory in bf16; checkpoints written;
+               then a Trainer with MAX_EPOCHS 3 resumes at step 8 with the
+               saved weights bit for bit and takes the next epoch. ms per
+               step (CUDA events) and validation's share of the fit;
+ 10. eval    — `python -m parq_torch.cli.eval` on configs/eval.yaml with
+               the fit's best checkpoint, synthetic snippets, bf16: the
+               metric lines 0.25_f1, 0.5_f1, 0.7_f1 and mean_latency_s are
+               printed; per snippet B1 and B2 8 launches each. The fit's
+               and eval's files under build/ are deleted at the end.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the parq_torch
 package beside this file, it exits non-zero and prints no result.
@@ -56,7 +72,10 @@ import dataclasses
 import io
 import json
 import math
+import argparse
+import contextlib
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -601,7 +620,7 @@ def phase_parity(cfg):
           + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items())))
 
 
-def device_profile(run, label, top=8):
+def device_profile(run, label, top=8, label_phase="times"):
     """One call of `run` under torch.profiler: device time by kernel name,
     and the device's busy share of the profiled call's wall time."""
     from torch.autograd import DeviceType
@@ -621,14 +640,14 @@ def device_profile(run, label, top=8):
                and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in kernels)
     if not kernels:
-        phase("times", f"profiler saw no device time in the {label}: "
+        phase(label_phase, f"profiler saw no device time in the {label}: "
               "breakdown not measured")
         return
-    phase("times", f"profiled {label}: wall {wall_ms:.2f} ms, device busy "
+    phase(label_phase, f"profiled {label}: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"{len(kernels)} kernel names")
     for name, ms, n in sorted(kernels, key=lambda k: -k[1])[:top]:
-        phase("times", f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% x{n} "
+        phase(label_phase, f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% x{n} "
               f"{name[:90]}")
 
 
@@ -893,6 +912,194 @@ def grid_sampler_bwd_ms(mem, uvs, g):
         return None
 
 
+CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
+TRAIN_KERNELS = {"pixel_align_sample": 8, "flash_cross_attention_fwd": 0,
+                 "flash_cross_attention_fwd_train": 8,
+                 "flash_cross_attention_bwd": 1, "pixel_align_bwd_mem": 1}
+VAL_KERNELS = {"pixel_align_sample": 8, "flash_cross_attention_fwd": 8,
+               "flash_cross_attention_fwd_train": 0,
+               "flash_cross_attention_bwd": 0, "pixel_align_bwd_mem": 0}
+
+
+def cli_opts(name, *opts):
+    """Overrides shared by the CLI phases: bf16, synthetic snippets, the
+    mean-size table by absolute path, files under build/."""
+    return ["TRAINER.PRECISION", "16", "DATAMODULE.DATA_PATH", "synthetic",
+            "MODEL.DECODER.MEAN_SIZE_PATH",
+            os.path.join(ROOT, "data", "average_scan2cad.txt"),
+            "LOG_IMAGES", "False", "LOG_PATH", CLI_DIR, "NAME", name, *opts]
+
+
+@contextlib.contextmanager
+def counted_path(model_dtypes):
+    """Per train step and per validation of the Trainer: the launch counts
+    (set to 0 just before, read just after), the step's CUDA-event ms and
+    the validation's wall ms; the decoder's memory dtype on every forward
+    of every model the Trainer builds."""
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.train import loop
+    steps, vals = [], []
+    step, validate, build = loop.train_step, loop.Trainer.validate, \
+        loop.build_model
+
+    def counted_step(*a, **k):
+        reset_launch_counts()
+        t = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t[0].record()
+        out = step(*a, **k)
+        t[1].record()
+        torch.cuda.synchronize()
+        steps.append((launch_counts(), t[0].elapsed_time(t[1])))
+        return out
+
+    def counted_validate(self, *a, **k):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = validate(self, *a, **k)
+        torch.cuda.synchronize()
+        vals.append((launch_counts(), 1e3 * (time.perf_counter() - t0)))
+        return out
+
+    def watched_build(*a, **k):
+        model = build(*a, **k)
+        model_dtypes.append(watch_memory_dtype(model)[0])
+        return model
+
+    loop.train_step, loop.Trainer.validate, loop.build_model = \
+        counted_step, counted_validate, watched_build
+    try:
+        yield steps, vals
+    finally:
+        loop.train_step, loop.Trainer.validate, loop.build_model = \
+            step, validate, build
+
+
+def check_counts(seen, want, what):
+    for i, (counts, _) in enumerate(seen):
+        check(counts == want, f"{what} {i}: launches {counts}, want {want}")
+
+
+def phase_fit(smi_line):
+    """The train twin at release width; then a resume. Returns the best
+    checkpoint's path after the resume, and the ms per step."""
+    from parq_torch.cli import train as cli_train
+    from parq_torch.config import get_cfg, update_config
+    from parq_torch.train.loop import Trainer
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    cfg_path = os.path.join(ROOT, "configs", "train.yaml")
+    def fit_opts(epochs):
+        return cli_opts("fit", "DATAMODULE.BATCH_SIZE", "8",
+                        "TRAINER.MAX_EPOCHS", str(epochs),
+                        "TRAINER.VAL_CHECK_INTERVAL", "0.5",
+                        "TRAINER.LOG_EVERY_N_STEPS", "1",
+                        "CALLBACK.SAVE_TOP_K", "1")
+    opts = fit_opts(2)
+    dtypes = []
+    t0 = time.perf_counter()
+    with counted_path(dtypes) as (steps, vals):
+        trainer, final = cli_train.main(["--cfg", cfg_path, *opts])
+    fit_ms = 1e3 * (time.perf_counter() - t0)
+    check(len(steps) == 8 and len(vals) == 5, f"fit: {len(steps)} steps and "
+          f"{len(vals)} validations, want 8 and 4 + the final one")
+    check_counts(steps, TRAIN_KERNELS, "fit step")
+    check_counts(vals, VAL_KERNELS, "validation")
+    check(all(d == torch.bfloat16 for seen in dtypes for d in seen)
+          and sum(map(len, dtypes)) >= 8 + 5,
+          f"fit: the decoder's memory came as {dtypes}, want bfloat16")
+    with open(trainer.metrics_path) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["total_loss"] for r in rows if r["stage"] == "train"]
+    check(len(losses) >= 1 and all(math.isfinite(v) for v in losses),
+          f"fit: losses {losses}")
+    for r in rows:
+        if r["stage"] == "train":
+            phase("fit", f"step {r['step']}: loss {r['total_loss']:.5f} "
+                  f"grad_norm {r['grad_norm']:.4f} lr {r['lr']:.3e}")
+    kept = trainer.ckpt_mgr.steps()
+    best = trainer.ckpt_mgr.best_step()
+    check(8 in kept and best is not None and all(
+        os.path.exists(trainer.ckpt_mgr.path(s)) for s in kept),
+        f"fit: checkpoints kept {kept}, best {best}")
+    step_ms = [ms for _, ms in steps]
+    val_ms = sum(ms for _, ms in vals[:4])
+    mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
+    phase("fit", f"{len(steps)} steps at B=8 bf16, per step launches "
+          f"{steps[-1][0]}; per validation {vals[0][0]}; token memory "
+          f"bfloat16; checkpoints {kept} (best {best}); final metrics "
+          f"0.5_f1 {final.get('0.5_f1')}, total_loss "
+          f"{final.get('total_loss')}")
+    phase("fit", f"[{smi_line}] step {mean_ms:.2f} ms (CUDA events, mean "
+          f"of steps 2-8; step 1 {step_ms[0]:.2f} ms); 4 validations "
+          f"{val_ms:.1f} ms of the fit's {fit_ms:.1f} ms wall "
+          f"({100 * val_ms / fit_ms:.1f}%; the final one "
+          f"{vals[4][1]:.1f} ms)")
+
+    for line in trainer.profile_summary().splitlines():
+        phase("fit", f"  {line}")
+    # where a validation's time goes: as configured (2 spawn workers start
+    # per validation), then with the prefetch thread instead
+    _, val_loader = cli_train.build_loaders(trainer.cfg)
+    device_profile(lambda: trainer.validate(val_loader),
+                   "validation (NUM_WORKERS 2)", label_phase="fit")
+    val_loader.num_workers = 0
+    device_profile(lambda: trainer.validate(val_loader),
+                   "validation (prefetch thread)", label_phase="fit")
+
+    # resume: MAX_EPOCHS 3 picks up at step 8 and takes epoch 3
+    cfg = get_cfg()
+    update_config(cfg, argparse.Namespace(cfg=cfg_path, opts=fit_opts(3)))
+    saved = torch.load(trainer.ckpt_mgr.path(8), map_location="cuda",
+                       weights_only=True)["model"]
+    with counted_path([]) as (steps, vals):
+        again = Trainer(cfg)
+        train_loader, val_loader = cli_train.build_loaders(cfg)
+        again.setup_state(len(train_loader))
+        check(again.restore_if_available(train_loader)
+              and again.global_step == 8, "resume: not at step 8")
+        own = again.model.state_dict()
+        check(sorted(own) == sorted(saved) and all(
+            torch.equal(own[k], v) for k, v in saved.items()),
+            "resume: restored weights differ from the saved ones")
+        again.fit(train_loader, val_loader)
+    check(again.global_step == 12 and train_loader.epoch == 3
+          and len(steps) == 4, f"resume: at step {again.global_step}, epoch "
+          f"{train_loader.epoch}, {len(steps)} steps")
+    check_counts(steps, TRAIN_KERNELS, "resumed step")
+    check_counts(vals, VAL_KERNELS, "resumed validation")
+    phase("fit", f"resumed at step 8 with the saved weights bit for bit "
+          f"({len(saved)} tensors); took epoch 3: steps 9-12, "
+          f"{len(vals)} validations")
+    return again.ckpt_mgr.path(again.ckpt_mgr.best_step()), mean_ms
+
+
+def phase_eval(ckpt, smi_line):
+    """The eval twin on the fit's best checkpoint; its printed metrics."""
+    from parq_torch.cli import eval as cli_eval
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    out = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        metrics = cli_eval.main([
+            "--cfg", os.path.join(ROOT, "configs", "eval.yaml"),
+            "--CHECKPOINT_PATH", ckpt, *cli_opts("eval")])
+    counts = launch_counts()
+    text = out.getvalue()
+    sys.stdout.write(text)
+    printed = {line.split()[0] for line in text.splitlines() if line.strip()}
+    for key in ("0.25_f1", "0.5_f1", "0.7_f1", "mean_latency_s"):
+        check(key in printed and key in metrics, f"eval: {key} not printed")
+    want = {k: 8 * v for k, v in VAL_KERNELS.items()}
+    check(counts == want, f"eval: launches {counts} for 8 snippets, want "
+          f"{want}")
+    latency_ms = 1e3 * metrics["mean_latency_s"]
+    phase("eval", f"[{smi_line}] 8 snippets at B=1 bf16 from "
+          f"{os.path.relpath(ckpt, ROOT)}: mean latency {latency_ms:.2f} ms "
+          f"per snippet (the first excluded); launches {counts}; 0.5_f1 "
+          f"{metrics['0.5_f1']}")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return metrics
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -914,7 +1121,7 @@ def main():
 
     t0 = time.perf_counter()
     try:
-        phase_device()
+        smi_line = phase_device()
         phase_build()
         cfg = ModelConfig(compute_dtype="bfloat16")
         errs = phase_kernels(cfg)
@@ -924,6 +1131,10 @@ def main():
         phase_train_parity(cfg)
         rows = phase_times(cfg, engine, counts, requests, train_counts,
                            errs)
+        del engine
+        torch.cuda.empty_cache()
+        ckpt, _ = phase_fit(smi_line)
+        phase_eval(ckpt, smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,8 +1,10 @@
 """parq_torch — PyTorch/CUDA port of parq_tpu for one NVIDIA H100.
 
-Mirrors parq_tpu's layout (geometry/, ops/, kernels/, models/, evals/,
-data/, io/) so each module has an obvious counterpart. The JAX package is
-the reference this port is held against; nothing here imports it.
+Mirrors parq_tpu's layout (geometry/, ops/, kernels/, models/, losses/,
+evals/, data/, train/, config/, parallel/, io/) so each module has an
+obvious counterpart; cli/ holds the twins of the root train.py and
+eval.py. The JAX package is the reference this port is held against;
+nothing here imports it.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``. On a
 CUDA tensor every kernel wrapper launches its hand-written kernel (built

@@ -1,5 +1,6 @@
-"""Synthetic snippets for examples, serving specs and tests (numpy copy of
-parq_tpu/data/synthetic.py:make_snippet/make_batch).
+"""Synthetic snippets for examples, serving specs, tests and the CLIs'
+`DATA_PATH synthetic` (numpy copy of parq_tpu/data/synthetic.py:
+make_snippet, make_batch, SyntheticDataset).
 
 Deterministic scenes: a few oriented boxes 2-4 m in front of a 3-view
 camera rig, rendered as class-colored gaussian splats, embedded in a z-up
@@ -122,6 +123,30 @@ def make_batch(seeds, **kw) -> Dict[str, np.ndarray]:
         else:
             out[k] = [it[k] for it in items]
     return out
+
+
+class SyntheticDataset:
+    """Dataset-shaped wrapper over make_snippet for the loaders and CLIs
+    (parq_tpu/data/synthetic.py:142): snippet i is make_snippet(seed + i)
+    in scene i mod `scenes`, so the F1 track association sees several
+    snippets of one scene."""
+
+    def __init__(self, num_snippets: int = 32, image_size=(64, 48),
+                 num_views: int = 3, seed: int = 0, scenes: int = 4):
+        self.num_snippets = num_snippets
+        self.image_size = tuple(image_size)
+        self.num_views = num_views
+        self.seed = seed
+        self.scenes = scenes
+
+    def __len__(self):
+        return self.num_snippets
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        scene = idx % self.scenes
+        return make_snippet(self.seed + idx, image_size=self.image_size,
+                            num_views=self.num_views,
+                            scene_name=f"synthetic_scene_{scene:03d}")
 
 
 def to_device(batch: Dict, keys, device) -> Dict[str, torch.Tensor]:

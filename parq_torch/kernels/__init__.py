@@ -17,6 +17,10 @@ of a map lists the query rows that touch the tile and each pixel sums its
 taps in f32 registers in q order and is written once in the memory's
 dtype: no scratch, no atomics, the same bits from run to run.
 
+The CLI twins (``parq_torch/cli``) and the config tree
+(``parq_torch/config``) changed no kernel: `Trainer.fit` launches B1,
+B2-train, B3 and B4 every step and `Trainer.validate` B1 and B2.
+
 Each wrapper counts its launches in a ``launches`` attribute (a split
 forward with its combine kernel is one launch).
 `SERVE_KERNELS` are the ones a forward for serving launches; the training

@@ -33,12 +33,16 @@ class PARQModel(nn.Module):
                 or cfg.tokenizer_out_channels != 4 * cfg.fpn_channels:
             raise ValueError("need dec_dim == tokenizer_out_channels == "
                              "4 * fpn_channels")
-        self.backbone2d = ResNetFPN(cfg.resnet_name, cfg.fpn_channels)
+        self.backbone2d = ResNetFPN(cfg.resnet_name, cfg.fpn_channels,
+                                    cfg.backbone_layer, cfg.backbone_freeze)
         self.add_ray_pe = AddRayPE(cfg.tokenizer_out_channels,
                                    cfg.ray_points_scale, cfg.num_samples,
                                    cfg.min_depth, cfg.max_depth,
                                    cfg.feat_size)
-        mean = load_mean_size_table(cfg.mean_size_path, cfg.num_semcls)
+        class2type = (None if cfg.class_names is None
+                      else dict(enumerate(cfg.class_names)))
+        mean = load_mean_size_table(cfg.mean_size_path, cfg.num_semcls,
+                                    class2type)
         self.box3d_decoder = PARQDecoder(
             cfg.dec_dim, cfg.dec_heads, cfg.dec_ffn_dim, cfg.dec_layers,
             cfg.num_queries, cfg.num_semcls, cfg.scale, cfg.feat_size,
@@ -60,7 +64,7 @@ class PARQModel(nn.Module):
         ctx = (torch.autocast(dev.type, dtype=torch.bfloat16) if bf16
                else contextlib.nullcontext())
         with ctx:
-            camera = Camera(batch["camera"]).scale(0.25)
+            camera = Camera(batch["camera"]).scale(self.cfg.camera_scale)
             Tcp = Pose(batch["T_camera_pseudoCam"])
             Twp = Pose(batch["T_world_pseudoCam"])
             Twl = Pose(batch["T_world_local"])

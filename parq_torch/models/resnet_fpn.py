@@ -4,7 +4,11 @@
 torchvision's resnet_fpn_backbone as the reference uses it: frozen
 BatchNorm, an FPN over C2..C5 with torch-nearest top-down upsampling, then
 every level resized bilinearly (align_corners=False) to level 0 and
-concatenated (C = 4 · fpn_channels). Convolutions run NCHW in
+concatenated (C = 4 · fpn_channels); `layer` picks the target level
+(BACKBONE2D.LAYER) and `freeze` stops the gradient at the resized levels
+(BACKBONE2D.FREEZE), as parq_tpu/models/resnet_fpn.py:270-273. A level
+larger than the target is resized with an antialiased (triangle) filter,
+as `jax.image.resize` does when it shrinks. Convolutions run NCHW in
 channels_last memory format, so the final (B, T, h, w, C) token layout the
 JAX model emits is a free permute. Module and buffer names follow the
 reference checkpoint (``backbone2d.resnet_fpn.body.*`` / ``.fpn.*``).
@@ -134,11 +138,15 @@ def _resize(x: torch.Tensor, size, mode: str) -> torch.Tensor:
     """F.interpolate in the activation's own dtype, as the JAX backbone
     resizes: CUDA autocast would run it in float32, and the concatenated
     tokens and everything that reads them (the sampler, its d(memory), the
-    K/V projection's input) would then be float32 under bf16 compute."""
+    K/V projection's input) would then be float32 under bf16 compute.
+    Bilinear shrinking is antialiased, as `jax.image.resize`'s."""
+    shrink = mode == "bilinear" and (size[0] < x.shape[-2]
+                                     or size[1] < x.shape[-1])
     with torch.autocast(x.device.type, enabled=False):
         return F.interpolate(
             x, size=size, mode=mode,
-            align_corners=False if mode == "bilinear" else None)
+            align_corners=False if mode == "bilinear" else None,
+            antialias=shrink)
 
 
 class FPN(nn.Module):
@@ -171,11 +179,14 @@ class BackboneWithFPN(nn.Module):
 
 
 class ResNetFPN(nn.Module):
-    """Images (B, T, H, W, 3) in [0, 1] → tokens (B, T, H/4, W/4,
-    4 · fpn_channels), channels-last like the JAX model."""
+    """Images (B, T, H, W, 3) in [0, 1] → tokens (B, T, H/s, W/s,
+    4 · fpn_channels) with s = 2^(layer + 2), channels-last like the JAX
+    model."""
 
-    def __init__(self, resnet_name: str = "resnet50", fpn_channels: int = 256):
+    def __init__(self, resnet_name: str = "resnet50", fpn_channels: int = 256,
+                 layer: int = 0, freeze: bool = False):
         super().__init__()
+        self.layer, self.freeze = layer, freeze
         self.resnet_fpn = BackboneWithFPN(resnet_name, fpn_channels)
         self.register_buffer("mean", torch.tensor(IMAGENET_MEAN),
                              persistent=False)
@@ -188,7 +199,10 @@ class ResNetFPN(nn.Module):
         x = x.permute(0, 3, 1, 2)                 # NCHW view, NHWC storage
         x = x.contiguous(memory_format=torch.channels_last)
         pyr = self.resnet_fpn.fpn(self.resnet_fpn.body(x))
-        size = pyr[0].shape[-2:]
-        levels = [pyr[0]] + [_resize(p, size, "bilinear") for p in pyr[1:4]]
+        size = pyr[self.layer].shape[-2:]
+        levels = [p if i == self.layer else _resize(p, size, "bilinear")
+                  for i, p in enumerate(pyr[:4])]
+        if self.freeze:
+            levels = [p.detach() for p in levels]
         v = torch.cat(levels, dim=1).permute(0, 2, 3, 1)   # (BT, h, w, C)
         return v.reshape(B, T, size[0], size[1], v.shape[-1])

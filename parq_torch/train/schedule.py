@@ -72,3 +72,17 @@ def build_lr_schedule(*, base_lr: float, batch_size: int, max_epochs: int,
 
     step_fn.peak_lr = lr
     return step_fn
+
+
+def lr_schedule_from_cfg(cfg, steps_per_epoch: int) -> Callable[[int], float]:
+    """`build_lr_schedule` on a config tree's keys
+    (parq_tpu/train/schedule.py:build_lr_schedule)."""
+    t, o = cfg.TRAINER, cfg.OPTIMIZER
+    return build_lr_schedule(
+        base_lr=float(o.LEARNING_RATE),
+        batch_size=int(cfg.DATAMODULE.BATCH_SIZE),
+        max_epochs=int(t.MAX_EPOCHS), steps_per_epoch=steps_per_epoch,
+        warmup_epochs=int(o.WARMUP_EPOCHS), cycle_mult=float(o.CYCLE_MULT),
+        num_restarts=int(o.NUM_RESTARTS),
+        autoscale_lr=bool(o.AUTOSCALE_LR), num_nodes=int(t.NUM_NODES),
+        gpus=int(t.GPUS), accumulate=int(t.ACCUMULATE_GRAD_BATCHES))

@@ -29,6 +29,13 @@ class LossConfig:
     loss_weight: Tuple[float, float, float, float] = (5.0, 5.0, 5.0, 1.0)
     num_semcls: int = 9
 
+    @classmethod
+    def from_cfg(cls, cfg) -> "LossConfig":
+        """From a config tree (parq_tpu/train/train_step.py:83-86)."""
+        return cls(loss_weight=tuple(float(w) for w in
+                                     cfg.MODEL.DECODER.LOSS_WEIGHT),
+                   num_semcls=int(cfg.MODEL.DECODER.NUM_SEMCLS))
+
 
 def make_optimizer(model: torch.nn.Module, lr: float = 1e-4,
                    weight_decay: float = 0.01) -> torch.optim.AdamW:
@@ -73,17 +80,32 @@ def train_step(model, optimizer: torch.optim.Optimizer,
                batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator],
                loss_cfg: LossConfig = LossConfig(), max_norm: float = 1.0,
-               uniforms: Optional[torch.Tensor] = None
+               uniforms: Optional[torch.Tensor] = None,
+               accumulate: int = 1, micro_step: int = 0
                ) -> Dict[str, torch.Tensor]:
     """One optimisation step in place; returns the metrics (device
     tensors): total_loss, its components, valid_bs and grad_norm (before
-    the clip)."""
-    optimizer.zero_grad(set_to_none=True)
+    the clip).
+
+    With `accumulate` = k > 1 this is one micro-batch of optax.MultiSteps:
+    call it with micro_step 0 .. k−1; each adds its gradient / k, and the
+    last clips the mean gradient and applies the one update (grad_norm is
+    the mean gradient's, reported by the last call only). A parameter the
+    loss does not reach (a frozen backbone) gets a zero gradient, so AdamW
+    decays it as optax does."""
+    if micro_step == 0:
+        optimizer.zero_grad(set_to_none=True)
     losses, _ = forward_and_loss(model, batch, generator, loss_cfg,
                                  deterministic=False, uniforms=uniforms)
-    losses["total_loss"].backward()
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+    loss = losses["total_loss"]
+    (loss if accumulate == 1 else loss / accumulate).backward()
     metrics = {k: v.detach() for k, v in losses.items()}
+    if micro_step < accumulate - 1:
+        return metrics
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     metrics["grad_norm"] = clip_by_global_norm_(params, max_norm)
     optimizer.step()
     return metrics

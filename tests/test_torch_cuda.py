@@ -363,3 +363,83 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(gen):
         sample_views_bwd_mem(torch.zeros(1, 1, 2, 4, device="cuda"),
                              torch.zeros(1, 2, 12, device="cuda"),
                              (1, 1, 4, 4, 12), torch.float32)
+
+
+# ------------------------------------------ the train.py / eval.py twins --
+def test_nms_mask_device_on_card_equals_cpu(gen):
+    from parq_torch.evals import nms_mask_device
+    K = 64
+    lo = torch.rand(K, 3, device="cuda", generator=gen) * 4
+    hi = lo + 0.3 + torch.rand(K, 3, device="cuda", generator=gen)
+    signs = torch.tensor([[i >> 2 & 1, i >> 1 & 1, i & 1] for i in range(8)],
+                         device="cuda")
+    corners = torch.where(signs.bool()[None], hi[:, None], lo[:, None])
+    scores = torch.randperm(K, device="cuda", generator=gen).float() / K
+    labels = torch.randint(0, 10, (K,), device="cuda", generator=gen)
+    for same in (False, True):
+        got = nms_mask_device(corners, scores, labels, 9, 0.1, same)
+        want = nms_mask_device(corners.cpu(), scores.cpu(), labels.cpu(), 9,
+                               0.1, same)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+
+
+def test_device_batch_on_card(gen):
+    from parq_torch.data.synthetic import make_batch
+    from parq_torch.train.loop import to_device_batch
+    host = make_batch([0, 1])
+    got = to_device_batch(host, "cuda")
+    want = to_device_batch(host, "cpu")
+    torch.cuda.synchronize()
+    for k, v in want.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+        assert torch.equal(got[k].cpu(), v), k
+
+
+def test_trainer_fit_and_resume_on_card(gen, tmp_path):
+    """The Trainer on the card at a small width the kernels take (head dim
+    64, bf16): every step launches B1, B2-train, B3 and B4, each validation
+    B1 and B2; a second Trainer resumes with the weights bit for bit."""
+    import argparse
+    import os
+    from parq_torch.cli.train import build_loaders
+    from parq_torch.config import get_cfg, update_config
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.train.loop import Trainer
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def cfg_for(epochs):
+        cfg = get_cfg()
+        update_config(cfg, argparse.Namespace(
+            cfg=os.path.join(root, "configs", "smoke.yaml"), opts=[
+                "LOG_PATH", str(tmp_path), "TRAINER.PRECISION", "16",
+                "TRAINER.MAX_EPOCHS", str(epochs),
+                "MODEL.TOKENIZER.OUT_CHANNELS", "256",
+                "MODEL.DECODER.TRANSFORMER.DEC_DIM", "256",
+                "TPU.FPN_CHANNELS", "64"]))
+        return cfg
+
+    cfg = cfg_for(1)
+    trainer = Trainer(cfg)
+    assert trainer.device.type == "cuda"
+    train_loader, val_loader = build_loaders(cfg)
+    reset_launch_counts()
+    trainer.fit(train_loader, val_loader)
+    counts = launch_counts()
+    L, steps = int(cfg.MODEL.DECODER.TRANSFORMER.DEC_LAYERS), 2
+    assert counts["flash_cross_attention_fwd_train"] == L * steps
+    assert counts["flash_cross_attention_bwd"] == steps
+    assert counts["pixel_align_bwd_mem"] == steps
+    assert counts["flash_cross_attention_fwd"] == L      # one validation
+    assert counts["pixel_align_sample"] == L * (steps + 1)
+    saved = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+
+    cfg2 = cfg_for(2)
+    again = Trainer(cfg2)
+    loader2, val2 = build_loaders(cfg2)
+    again.setup_state(len(loader2))
+    assert again.restore_if_available(loader2) and again.global_step == 2
+    for k, v in saved.items():
+        assert torch.equal(again.model.state_dict()[k], v), k
+    again.fit(loader2, val2)
+    assert again.global_step == 4

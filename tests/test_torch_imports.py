@@ -2,9 +2,13 @@
 imports jax, flax, optax or anything of parq_tpu. The check parses each
 source and reads its import statements (mentions in prose are fine).
 It also checks that a CPU-only box can import every port module (the
-kernels are built only when first launched on a card)."""
+kernels are built only when first launched on a card), and that importing
+them all pulls in none of the packages the card machine lacks (PyYAML,
+PIL, tensorboardX, orbax)."""
 import ast
 import importlib
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -42,3 +46,22 @@ def test_port_modules_import_without_gpu():
         rel = path.relative_to(ROOT).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         importlib.import_module(".".join(parts))
+
+
+def _module_names():
+    for path in PORT_FILES[:-1]:
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_port_imports_need_no_yaml_pil_tensorboard_or_orbax():
+    absent = ("yaml", "PIL", "tensorboardX", "orbax")
+    code = ("import importlib, sys\n"
+            f"for m in {sorted(_module_names())!r}:\n"
+            "    importlib.import_module(m)\n"
+            f"print(sorted(m for m in {absent!r} if m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
