@@ -20,7 +20,14 @@ Phases, each printed on its own line; any failure exits non-zero:
                below one KV tile (40); B4 (sampler d(memory)) at Q=2048 in
                bf16 and f32 on three distributions of the rows (the
                decoder's, every row in one 8x8 patch, every row off the
-               image), two launches equal bit for bit;
+               image), two launches equal bit for bit; then B2-train and B3
+               on separate K and V (bf16 and f32): the natural layout at an
+               SP shard's 7,200 tokens (Q=256, and Q=2048 in 8 seed groups),
+               the legacy (B, H, N, D) layout padded past n_valid (rows past
+               it never read, their gradients left zero), the v2 dropout
+               hash (split and fused); a fused and a split call on the same
+               K/V values agree; a call on rows 4-7 with b_offset 4 equals
+               those rows of the call over all 8, bit for bit;
   4. serve   — an Engine at the release config (ResNet50, 3 x 320x240,
                L=8, Q=256, dim 1024, B=8, bf16) answers 3 /detect requests
                over HTTP; every output is finite, each serving kernel's
@@ -48,7 +55,25 @@ Phases, each printed on its own line; any failure exits non-zero:
                bound ms, plain ms and the library call's ms; B4 on its
                three distributions; B3's two passes from one profiled
                launch;
-  9. fit     — `python -m parq_torch.cli.train` in-process on
+  9. sp      — two ranks on the one card over gloo (NCCL refuses two ranks
+               on one GPU), MESH_MODEL 2, the memory tokens sharded: an f32
+               step (TF32 off, L=2, B=1, dropout 0) against the one-process
+               step on the same weights (loss rtol 1e-5, each gradient
+               ‖Δ‖ ≤ 2e-4·max(‖g‖, 1) + 1e-3 on each rank);
+               3 release bf16 steps at B=8, L=8, dropout 0.1 (gradients
+               averaged over the model group), per rank per step B1 8,
+               split B2-train 8, split B3 1 and B4 1 launches, parameters
+               equal on both ranks after them; one SP validation forward,
+               B1 8 and fused B2-LSE 8 per rank;
+ 10. ddp     — two ranks (MESH_DATA 2), dropout 0.1, the one-process step's
+               seeds: an f32 gate (TF32 off, L=2, one row a rank) to the sp
+               gate's tolerance; one release bf16 step, 4 rows a rank,
+               against the one-process B=8 step, to twice the distance of
+               that step from the same step in f32 (bf16 products over 4
+               rows instead of 8 round otherwise and break the matcher's
+               near ties otherwise); then the record of the split, legacy
+               and v2 forms;
+  11. fit     — `python -m parq_torch.cli.train` in-process on
                configs/train.yaml at release width in bf16 on synthetic
                snippets (32 to train, 8 to validate: the loaders' defaults
                for DATA_PATH synthetic), B=8, 2 epochs, validation every
@@ -59,11 +84,15 @@ Phases, each printed on its own line; any failure exits non-zero:
                then a Trainer with MAX_EPOCHS 3 resumes at step 8 with the
                saved weights bit for bit and takes the next epoch. ms per
                step (CUDA events) and validation's share of the fit;
- 10. eval    — `python -m parq_torch.cli.eval` on configs/eval.yaml with
+ 12. eval    — `python -m parq_torch.cli.eval` on configs/eval.yaml with
                the fit's best checkpoint, synthetic snippets, bf16: the
                metric lines 0.25_f1, 0.5_f1, 0.7_f1 and mean_latency_s are
-               printed; per snippet B1 and B2 8 launches each. The fit's
-               and eval's files under build/ are deleted at the end.
+               printed; per snippet B1 and B2 8 launches each;
+ 13. fit-sp  — the train twin under `torchrun --standalone --nproc_per_node
+               2` (gloo), TPU.SEQ_PARALLEL True, MESH_MODEL 2, B=8: 2 steps,
+               1 validation, the checkpoint written once (by rank 0), the
+               final validation; every rank must exit 0. The fit's, eval's
+               and fit-sp's files under build/ are deleted at the end.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the parq_torch
 package beside this file, it exits non-zero and prints no result.
@@ -360,12 +389,15 @@ def phase_kernels(cfg):
                   + f" (atol {atol}; the wrapper's rule picks "
                   f"{_splits_for(q, n, q.shape[2], None)})")
     errs.update(train_kernels(cfg, gen, N))
+    errs.update(split_kernels(cfg, gen, N))
     torch.cuda.synchronize()
     return {"pixel_align_sample": errs[("B1", torch.bfloat16)],
             "flash_cross_attention_fwd": errs[("B2", torch.bfloat16, N)],
             "flash_cross_attention_fwd_train": errs["B2-train"],
             "flash_cross_attention_bwd": errs["B3"],
-            "pixel_align_bwd_mem": errs["B4"]}
+            "pixel_align_bwd_mem": errs["B4"],
+            **{k: v for k, v in errs.items() if isinstance(k, str)
+               and k.startswith("flash_cross_attention_")}}
 
 
 def check_building_blocks(gen):
@@ -512,6 +544,159 @@ def train_kernels(cfg, gen, N):
                   f"({rel:.2e} of its max; limit {atol}); two launches equal "
                   "bit for bit")
             del got, want
+    return errs
+
+
+def natural_kv(kv, H):
+    """The fused (B, N, H·2D) buffer's K and V as two natural (B, N, H·D)
+    buffers (copies)."""
+    from parq_torch.kernels.cross_attention import split_kv
+    B, N = kv.shape[:2]
+    return tuple(t.transpose(1, 2).reshape(B, N, -1).contiguous()
+                 for t in split_kv(kv, H))
+
+
+def legacy_kv(k_nat, v_nat, H, n_pad, gen):
+    """Natural K and V as legacy (B, H, n_pad, D) buffers: the first N
+    rows hold them, the rows past N random numbers the kernels must never
+    read (as a caller's `pad_kv_for_flash` buffer holds zeros there)."""
+    B, N, F = k_nat.shape
+    out = []
+    for t in (k_nat, v_nat):
+        buf = torch.randn(B, H, n_pad, F // H, device="cuda",
+                          generator=gen).to(t.dtype)
+        buf[:, :, :N] = t.view(B, N, H, F // H).transpose(1, 2)
+        out.append(buf)
+    return out
+
+
+def check_split(q, k, v, n_valid, seeds, rate, atol, gen, label, v2=False,
+                backward=True):
+    """B2-train and B3 on K/V views (natural or legacy buffers) against
+    their plain versions: o to atol (beyond one bf16 step for bf16), lse
+    to 1e-4, dq, dK and dV to atol of their maxima; dK and dV rows past
+    n_valid stay zero. Returns (o err, worst backward err)."""
+    from parq_torch.kernels import flash_bwd_kv, flash_fwd_lse_kv
+    from parq_torch.kernels.cross_attention import (
+        attention_bwd_plain, attention_train_plain, heads_view)
+    H = q.shape[1]
+    kh, vh = heads_view(k, H, n_valid), heads_view(v, H, n_valid)
+    o, lse = flash_fwd_lse_kv(q, kh, vh, seeds, rate, v2=v2)
+    o_ref, lse_ref = attention_train_plain(q, kh, vh, seeds, rate, v2=v2)
+    err, err_l = _excess(o, o_ref), (lse - lse_ref).abs().max().item()
+    check(err <= atol and err_l <= 1e-4, f"{label}: o err {err} > {atol} or "
+          f"lse {err_l} > 1e-4")
+    phase("kernels", f"{label} B2-train {str(q.dtype)[6:]} q "
+          f"{tuple(q.shape)} k {tuple(k.shape)} n_valid {n_valid} G="
+          f"{seeds.numel()} rate {rate}: o max abs err {err:.3e} (bf16: "
+          f"beyond one bf16 step; atol {atol}), lse {err_l:.3e} (atol 1e-4)")
+    if not backward:
+        return err, 0.0
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    delta = (do.float() * o.float()).sum(-1)
+    grads = {}
+    for name, fn in (("kernel", flash_bwd_kv), ("plain", attention_bwd_plain)):
+        dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+        dq = fn(q, kh, vh, do, lse, delta, seeds, rate, heads_view(dk, H,
+                n_valid), heads_view(dv, H, n_valid), v2=v2)
+        grads[name] = (dq, dk, dv)
+    worst = 0.0
+    for i, what in enumerate(("dq", "dk", "dv")):
+        e, rel = _rel_err(grads["kernel"][i], grads["plain"][i])
+        check(rel <= atol, f"{label} B3 {what}: max abs err {e} is {rel} of "
+              f"its max > {atol}")
+        worst = max(worst, e)
+        phase("kernels", f"{label} B3 {str(q.dtype)[6:]} q {tuple(q.shape)} "
+              f"{what}: max abs err {e:.3e} ({rel:.2e} of its max; limit "
+              f"{atol})")
+    if k.dim() == 4 and k.shape[2] > n_valid:
+        check(not grads["kernel"][1][:, :, n_valid:].any()
+              and not grads["kernel"][2][:, :, n_valid:].any(),
+              f"{label} B3: rows past n_valid were written")
+    return err, worst
+
+
+def split_kernels(cfg, gen, N):
+    """B2-train and B3 on separate K and V at the release widths: the
+    natural layout at an SP shard's N/2 tokens (Q=256, and Q=2048 in 8
+    seed groups for B3), the legacy layout padded past n_valid, the v2
+    dropout hash; a fused and a split call on the same K/V values agree;
+    a call on rows 4-7 with b_offset 4 equals those rows of the call over
+    all 8, bit for bit. Returns the bf16 errors of the JSON rows."""
+    from parq_torch.kernels import flash_bwd, flash_fwd_lse, flash_fwd_lse_kv
+    from parq_torch.kernels.cross_attention import (
+        _flash_fwd_lse, _splits_for, cross_attention_kv_fused_bwd_plain,
+        cross_attention_kv_fused_train_plain, heads_view)
+    Hh, D, Q0, L = cfg.dec_heads, cfg.dec_dim // cfg.dec_heads, \
+        cfg.num_queries, cfg.dec_layers
+    rate, errs, n_sp = cfg.dropout_rate, {}, N // 2
+    for dtype, atol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        q, kv = attention_inputs(8, Hh, Q0, n_sp, D, dtype, gen)
+        k, v = natural_kv(kv, Hh)
+        s1, sL = seed_vector(1, gen), seed_vector(L, gen)
+        err, _ = check_split(q, k, v, n_sp, s1, rate, atol, gen,
+                             "split natural", backward=False)
+        qf, _ = attention_inputs(8, Hh, L * Q0, 1, D, dtype, gen)
+        err_f, worst = check_split(qf, k, v, n_sp, sL, rate, atol, gen,
+                                   "split natural folded")
+        # a fused and a split call on the same values
+        o_f, l_f = flash_fwd_lse(q, kv, s1, rate)
+        o_s, l_s = flash_fwd_lse_kv(q, heads_view(k, Hh, n_sp),
+                                    heads_view(v, Hh, n_sp), s1, rate)
+        d_o = (o_f.float() - o_s.float()).abs().max().item()
+        d_l = (l_f - l_s).abs().max().item()
+        check(d_o <= atol and d_l <= 1e-4, f"fused vs split {dtype}: o "
+              f"{d_o}, lse {d_l}")
+        phase("kernels", f"fused vs split B2-train {str(dtype)[6:]}, the same "
+              f"K/V values: o differ by {d_o:.3e}, lse by {d_l:.3e} (equal "
+              f"bit for bit: {torch.equal(o_f, o_s) and torch.equal(l_f, l_s)})")
+        # legacy (B, H, N_pad, D) buffers, n_valid < N_pad
+        k_leg, v_leg = legacy_kv(k, v, Hh, -(-n_sp // 1920) * 1920 + 1920,
+                                 gen)
+        err_leg, worst_leg = check_split(qf, k_leg, v_leg, n_sp, sL, rate,
+                                         atol, gen, "legacy")
+        # the v2 hash, fused and split
+        err_v2, worst_v2 = check_split(qf, k, v, n_sp, sL, rate, atol, gen,
+                                       "v2 split", v2=True)
+        o2, lse2 = flash_fwd_lse(q, kv, s1, rate, v2=True)
+        o2_ref, lse2_ref = cross_attention_kv_fused_train_plain(
+            q, kv, s1, rate, v2=True)
+        err2 = _excess(o2, o2_ref)
+        check(err2 <= atol and (lse2 - lse2_ref).abs().max().item() <= 1e-4,
+              f"v2 fused B2-train {dtype}: o err {err2}")
+        do = torch.randn(qf.shape, device="cuda", generator=gen).to(dtype)
+        of, lf = flash_fwd_lse(qf, kv, sL, rate, v2=True)
+        delta = (do.float() * of.float()).sum(-1)
+        got = flash_bwd(qf, kv, do, lf, delta, sL, rate, v2=True)
+        want = cross_attention_kv_fused_bwd_plain(qf, kv, do, lf, delta, sL,
+                                                  rate, v2=True)
+        rel2 = max(_rel_err(a, b)[1] for a, b in zip(got, want))
+        check(rel2 <= atol, f"v2 fused B3 {dtype}: {rel2} of its max")
+        phase("kernels", f"v2 fused {str(dtype)[6:]}: B2-train o max abs err "
+              f"{err2:.3e} (atol {atol}); B3 {rel2:.2e} of its max (limit "
+              f"{atol})")
+        # b_offset: rows 4-7 of the global call, bit for bit
+        sp = _splits_for(q, n_sp, Q0, None)
+        o_all, l_all = _flash_fwd_lse(q, kv, s1, rate, sp)
+        o_4, l_4 = _flash_fwd_lse(q[4:], kv[4:], s1, rate, sp, b_offset=4)
+        dq_all, dkv_all = flash_bwd(q, kv, o_all, l_all, l_all, s1, rate)
+        dq_4, dkv_4 = flash_bwd(q[4:], kv[4:], o_all[4:], l_all[4:],
+                                l_all[4:], s1, rate, b_offset=4)
+        check(torch.equal(o_all[4:], o_4) and torch.equal(l_all[4:], l_4)
+              and torch.equal(dq_all[4:], dq_4)
+              and torch.equal(dkv_all[4:], dkv_4),
+              f"b_offset {dtype}: rows 4-7 differ from the global call")
+        phase("kernels", f"b_offset {str(dtype)[6:]}: B2-train and B3 on rows "
+              "4-7 with b_offset 4 equal rows 4-7 of the call over all 8, bit "
+              "for bit")
+        if dtype == torch.bfloat16:
+            errs.update({"flash_cross_attention_fwd_train_split": err,
+                         "flash_cross_attention_bwd_split": worst,
+                         "flash_cross_attention_fwd_train_legacy": err_leg,
+                         "flash_cross_attention_bwd_legacy": worst_leg,
+                         "flash_cross_attention_fwd_train_v2": err2,
+                         "flash_cross_attention_bwd_v2": worst_v2})
+        del qf, kv, k, v, k_leg, v_leg
     return errs
 
 
@@ -689,10 +874,8 @@ def phase_train(cfg, steps=5):
     check(mem_dtypes == [torch.bfloat16] * steps, f"train: the decoder's "
           f"memory came as {mem_dtypes}, want bfloat16 every step (B1 and "
           "B4 take the memory's dtype)")
-    want = {"pixel_align_sample": cfg.dec_layers,
-            "flash_cross_attention_fwd": 0,
-            "flash_cross_attention_fwd_train": cfg.dec_layers,
-            "flash_cross_attention_bwd": 1, "pixel_align_bwd_mem": 1}
+    want = dict(TRAIN_KERNELS, pixel_align_sample=cfg.dec_layers,
+                flash_cross_attention_fwd_train=cfg.dec_layers)
     for name, n in counts.items():
         check(n == want[name] * steps, f"train: {name} launched {n} times "
               f"in {steps} steps, want {want[name]} per step")
@@ -890,6 +1073,114 @@ def phase_times(cfg, engine, counts, requests, train_counts, errs):
     return rows
 
 
+def split_rows(cfg, errs, sp_counts):
+    """The kernels' record for the forms on separate K and V and the v2
+    hash: B2-train and B3 natural at an SP rank's shapes (half the release
+    tokens: its own shard of K/V), the legacy layout and the v2 hash at the
+    release shapes. Launches: rank 0's in the sp phase's steps; the legacy
+    layout and the v2 hash are not on the main path (0)."""
+    import torch.nn.functional as F
+    from parq_torch.kernels import (flash_bwd, flash_bwd_kv, flash_fwd_lse,
+                                    flash_fwd_lse_kv)
+    from parq_torch.kernels.cross_attention import (
+        attention_bwd_plain, attention_train_plain,
+        cross_attention_kv_fused_bwd_plain,
+        cross_attention_kv_fused_train_plain, heads_view)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, Hh, D = 8, cfg.dec_heads, cfg.dec_dim // cfg.dec_heads
+    Q0, L, rate = cfg.num_queries, cfg.dec_layers, cfg.dropout_rate
+    N = cfg.num_views * cfg.feat_size[0] * cfg.feat_size[1]
+    s1, sL = seed_vector(1, gen), seed_vector(L, gen)
+    src = {"fwd": "parq_torch/csrc/flash_fwd_sm90.cu",
+           "bwd": "parq_torch/csrc/flash_bwd_sm90.cu"}
+    rep = {"fwd": "parq_tpu/kernels/cross_attention_pallas.py:457",
+           "bwd": "parq_tpu/kernels/cross_attention_pallas.py:547"}
+    rows = []
+
+    def views(n, legacy):
+        q, kv = attention_inputs(B, Hh, Q0, n, D, torch.bfloat16, gen)
+        k, v = natural_kv(kv, Hh)
+        if legacy:
+            k, v = legacy_kv(k, v, Hh, -(-n // 1920) * 1920, gen)
+        return q, kv, heads_view(k, Hh, n), heads_view(v, Hh, n)
+
+    def sdpa_ms(q, kh, vh, dropout):
+        k, v = kh.contiguous(), vh.contiguous()
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, dropout_p=dropout), 10)
+
+    def sdpa_bwd_ms(qf, kh, vh, do):
+        ql, kl, vl = (t.detach().contiguous().requires_grad_(True)
+                      for t in (qf, kh, vh))
+        ol = F.scaled_dot_product_attention(ql, kl, vl)
+        return cuda_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), do, retain_graph=True), 5)
+
+    for form, n, legacy in (("split", N // 2, False),
+                            ("legacy", N, True)):
+        q, kv, kh, vh = views(n, legacy)
+        qf, _ = attention_inputs(B, Hh, L * Q0, 1, D, torch.bfloat16, gen)
+        do = torch.randn(qf.shape, device="cuda", generator=gen).bfloat16()
+        o, lse = flash_fwd_lse_kv(qf, kh, vh, sL, rate)
+        delta = (do.float() * o.float()).sum(-1)
+        dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+        fb, fby = attention_bound(q, kv, lse=True)
+        bb, bby = attention_bwd_bound(qf, kv)
+        launches = sp_counts if form == "split" else {}
+        rows.append(dict(
+            name=f"flash_cross_attention_fwd_train_{form}", route="cuda",
+            source=src["fwd"], replaces=rep["fwd"],
+            launches=launches.get("flash_cross_attention_fwd_train_split", 0),
+            ms=device_ms(lambda: flash_fwd_lse_kv(q, kh, vh, s1, rate), 10),
+            plain_ms=device_ms(lambda: attention_train_plain(
+                q, kh, vh, s1, rate), 3),
+            bound_ms=fb, bound_by=fby,
+            library_ms=sdpa_ms(q, kh, vh, rate)))
+        rows.append(dict(
+            name=f"flash_cross_attention_bwd_{form}", route="cuda",
+            source=src["bwd"], replaces=rep["bwd"],
+            launches=launches.get("flash_cross_attention_bwd_split", 0),
+            ms=device_ms(lambda: flash_bwd_kv(qf, kh, vh, do, lse, delta, sL,
+                                              rate, dk, dv), 3),
+            plain_ms=device_ms(lambda: attention_bwd_plain(
+                qf, kh, vh, do, lse, delta, sL, rate, dk, dv), 3),
+            bound_ms=bb, bound_by=bby,
+            library_ms=sdpa_bwd_ms(qf, kh, vh, do)))
+        del q, kv, kh, vh, qf, do, o, lse, delta, dk, dv
+    # the v2 hash on the fused buffer at the release shapes
+    q, kv = attention_inputs(B, Hh, Q0, N, D, torch.bfloat16, gen)
+    qf, _ = attention_inputs(B, Hh, L * Q0, 1, D, torch.bfloat16, gen)
+    do = torch.randn(qf.shape, device="cuda", generator=gen).bfloat16()
+    o, lse = flash_fwd_lse(qf, kv, sL, rate, v2=True)
+    delta = (do.float() * o.float()).sum(-1)
+    kh, vh = natural_kv(kv, Hh)
+    kh, vh = heads_view(kh, Hh, N), heads_view(vh, Hh, N)
+    fb, fby = attention_bound(q, kv, lse=True)
+    bb, bby = attention_bwd_bound(qf, kv)
+    rows.append(dict(
+        name="flash_cross_attention_fwd_train_v2", route="cuda",
+        source=src["fwd"], replaces=rep["fwd"], launches=0,
+        ms=device_ms(lambda: flash_fwd_lse(q, kv, s1, rate, v2=True), 10),
+        plain_ms=device_ms(lambda: cross_attention_kv_fused_train_plain(
+            q, kv, s1, rate, v2=True), 3),
+        bound_ms=fb, bound_by=fby, library_ms=sdpa_ms(q, kh, vh, rate)))
+    rows.append(dict(
+        name="flash_cross_attention_bwd_v2", route="cuda",
+        source=src["bwd"], replaces=rep["bwd"], launches=0,
+        ms=device_ms(lambda: flash_bwd(qf, kv, do, lse, delta, sL, rate,
+                                       v2=True), 3),
+        plain_ms=device_ms(lambda: cross_attention_kv_fused_bwd_plain(
+            qf, kv, do, lse, delta, sL, rate, v2=True), 3),
+        bound_ms=bb, bound_by=bby, library_ms=sdpa_bwd_ms(qf, kh, vh, do)))
+    for r in rows:
+        r["max_abs_err"] = errs[r["name"]]
+        phase("times", f"{r['name']}: {r['ms']:.4f} ms/launch, "
+              f"{r['launches']} launches on its path, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+    return rows
+
+
 def grid_sampler_bwd_ms(mem, uvs, g):
     """The library's d(input) of grid_sample (zeros padding, corners
     aligned) on the same data: the per-view scale folded into the
@@ -913,12 +1204,24 @@ def grid_sampler_bwd_ms(mem, uvs, g):
 
 
 CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
-TRAIN_KERNELS = {"pixel_align_sample": 8, "flash_cross_attention_fwd": 0,
-                 "flash_cross_attention_fwd_train": 8,
-                 "flash_cross_attention_bwd": 1, "pixel_align_bwd_mem": 1}
-VAL_KERNELS = {"pixel_align_sample": 8, "flash_cross_attention_fwd": 8,
-               "flash_cross_attention_fwd_train": 0,
-               "flash_cross_attention_bwd": 0, "pixel_align_bwd_mem": 0}
+NO_KERNELS = {"pixel_align_sample": 0, "flash_cross_attention_fwd": 0,
+              "flash_cross_attention_fwd_train": 0,
+              "flash_cross_attention_bwd": 0, "pixel_align_bwd_mem": 0,
+              "flash_cross_attention_fwd_train_split": 0,
+              "flash_cross_attention_bwd_split": 0}
+TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
+                     flash_cross_attention_fwd_train=8,
+                     flash_cross_attention_bwd=1, pixel_align_bwd_mem=1)
+VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
+                   flash_cross_attention_fwd=8)
+# sequence-parallel: per rank, the split forms in training, the fused
+# forward with LSE (the merge needs it) in validation
+SP_TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
+                        flash_cross_attention_fwd_train_split=8,
+                        flash_cross_attention_bwd_split=1,
+                        pixel_align_bwd_mem=1)
+SP_VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
+                      flash_cross_attention_fwd_train=8)
 
 
 def cli_opts(name, *opts):
@@ -1100,6 +1403,374 @@ def phase_eval(ckpt, smi_line):
     return metrics
 
 
+# ------------------------------------------------- parallel phases --
+DIST_DIR = os.path.join(ROOT, "build", "chip_smoke_dist")
+DIST_BACKEND = "gloo"   # NCCL refuses two ranks on one card
+
+
+def run_ranks(fn, world, *args, timeout=600.0):
+    """`world` processes on the one card, each joining one gloo group
+    through a file:// rendezvous under build/, each running fn(rank,
+    world, *args) and saving its result. Fails if any rank raises, exits
+    non-zero or outlives `timeout`; leaves no process running."""
+    import torch.multiprocessing as mp
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    torch.cuda.empty_cache()
+    ctx = mp.start_processes(_rank_entry, args=(fn, world, args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline,
+                  f"{fn.__name__}: ranks did not finish in {timeout} s")
+    except mp.ProcessRaisedException as e:
+        raise SmokeFailure(f"{fn.__name__}: a rank failed:\n{e}") from None
+    except mp.ProcessExitedException as e:
+        raise SmokeFailure(f"{fn.__name__}: a rank exited: {e}") from None
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in ctx.processes]
+    check(codes == [0] * world, f"{fn.__name__}: rank exit codes {codes}")
+    out = [torch.load(os.path.join(DIST_DIR, f"rank{r}.pt"),
+                      weights_only=False) for r in range(world)]
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return out
+
+
+def _rank_entry(rank, fn, world, args):
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        DIST_BACKEND, init_method=f"file://{DIST_DIR}/rendezvous",
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        torch.save(fn(rank, world, *args),
+                   os.path.join(DIST_DIR, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _grads_cpu(model):
+    return {n: p.grad.detach().float().cpu()
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _f32_gate_cfg(cfg, rate):
+    """The gates' model: f32, L=2, dropout `rate`; TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dataclasses.replace(cfg, compute_dtype="float32",
+                               dropout_rate=rate, dec_layers=2)
+
+
+def _f32_step_grads(cfg, mesh):
+    """One f32 step's loss and gradients, TF32 off, dropout 0, L=2, B=1,
+    fixed matcher draws; `mesh` None is one process."""
+    from parq_torch.data.synthetic import make_batch, to_device
+    from parq_torch.models import build_model
+    from parq_torch.train.__main__ import TRAIN_KEYS
+    from parq_torch.train.train_step import forward_and_loss
+    f32 = _f32_gate_cfg(cfg, 0.0)
+    raw = make_batch([5], image_size=f32.image_size)
+    u = torch.rand((f32.dec_layers, f32.num_queries,
+                    raw["obbs_padded"].shape[1]),
+                   generator=torch.Generator().manual_seed(0))
+    model = build_model(f32, seed=1, device="cuda").train()
+    if mesh is not None:
+        model.set_parallel(mesh, True)
+    losses, _ = forward_and_loss(model, to_device(raw, TRAIN_KEYS, "cuda"),
+                                 None, uniforms=u)
+    losses["total_loss"].backward()
+    return float(losses["total_loss"].detach()), _grads_cpu(model)
+
+
+def _compare_grads(got, want, rtol, floor):
+    """The worst ‖Δ‖ / (rtol·max(‖g‖, 1) + floor) over the parameters,
+    and its name (≤ 1 passes)."""
+    worst, name = 0.0, ""
+    check(sorted(got) == sorted(want), "gradients of other parameters")
+    for n, g in want.items():
+        r = float((got[n] - g).norm()) / (rtol * max(float(g.norm()), 1.0)
+                                          + floor)
+        if r > worst:
+            worst, name = r, n
+    return worst, name
+
+
+def _grad_gap(got, want):
+    """‖ΔG‖ / ‖G‖ over all parameters."""
+    total = math.sqrt(sum(float(g.norm()) ** 2 for g in want.values()))
+    diff = math.sqrt(sum(float((got[n] - g).norm()) ** 2
+                         for n, g in want.items()))
+    return diff / total
+
+
+def _sp_rank(rank, world, cfg, B, steps):
+    """A rank of the sp phase: the f32 gate's gradients (rank 0 also takes
+    the one-process step), `steps` bf16 training steps with their launch
+    counts and CUDA-event ms, one SP validation forward."""
+    import torch.distributed as dist
+    from parq_torch.data.synthetic import make_batch, to_device
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.models import BATCH_KEYS, build_model
+    from parq_torch.parallel.mesh import make_mesh, replicated
+    from parq_torch.train.__main__ import TRAIN_KEYS
+    from parq_torch.train.train_step import make_optimizer, train_step
+    mesh = make_mesh(data=1, model=world)
+    out = {}
+    out["f32"] = _f32_step_grads(cfg, mesh)
+    if rank == 0:
+        out["f32_one"] = _f32_step_grads(cfg, None)
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.reset_peak_memory_stats()
+    model = replicated(build_model(cfg, seed=0, device="cuda").train())
+    model.set_parallel(mesh, True)
+    opt = make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    counts, ms, losses = [], [], []
+    for step in range(steps):
+        batch = to_device(make_batch(list(range(step * B, (step + 1) * B)),
+                                     image_size=cfg.image_size),
+                          TRAIN_KEYS, "cuda")
+        dist.barrier()
+        reset_launch_counts()
+        t = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t[0].record()
+        m = train_step(model, opt, batch, gen, model_group=mesh.model_group)
+        t[1].record()
+        torch.cuda.synchronize()
+        counts.append(launch_counts())
+        ms.append(t[0].elapsed_time(t[1]))
+        losses.append((float(m["total_loss"]), float(m["grad_norm"])))
+    out["steps"] = (counts, ms, losses)
+    out["params"] = {n: p.detach().float().cpu()
+                     for n, p in model.named_parameters()}
+    model.eval()
+    batch = to_device(make_batch(list(range(B)), image_size=cfg.image_size),
+                      BATCH_KEYS, "cuda")
+    reset_launch_counts()
+    with torch.inference_mode():
+        o = model(batch)
+    torch.cuda.synchronize()
+    out["val"] = (launch_counts(),
+                  all(bool(torch.isfinite(v.float()).all())
+                      for v in o.values() if v.dtype != torch.bool))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def phase_sp(cfg, B=8, steps=3):
+    """Sequence parallelism, two ranks on the one card (gloo): the f32 gate
+    against one process; `steps` release bf16 steps (L=8, dropout 0.1);
+    an SP validation forward. Returns rank 0's launch counts of the bf16
+    steps, summed."""
+    t0 = time.perf_counter()
+    outs = run_ranks(_sp_rank, 2, cfg, B, steps)
+    (loss, grads), (loss1, grads1) = outs[0]["f32"], outs[0]["f32_one"]
+    worst, name = _compare_grads(grads, grads1, 2e-4, 1e-3)
+    worst_r, name_r = _compare_grads(outs[1]["f32"][1], grads1, 2e-4, 1e-3)
+    phase("sp", f"backend {DIST_BACKEND}, 2 ranks on one card, MESH_MODEL 2: "
+          f"f32 gate (TF32 off, L=2, B=1, dropout 0) loss {loss:.7f} and "
+          f"{outs[1]['f32'][0]:.7f} vs one process {loss1:.7f}; "
+          f"{len(grads)} gradients, worst {worst:.3f} and {worst_r:.3f} of "
+          f"the limit 2e-4·max(‖g‖, 1) + 1e-3 ({name}; {name_r}); "
+          f"‖ΔG‖/‖G‖ {_grad_gap(grads, grads1):.2e} and "
+          f"{_grad_gap(outs[1]['f32'][1], grads1):.2e}")
+    for l_r in (loss, outs[1]["f32"][0]):
+        check(abs(l_r - loss1) <= 1e-5 * abs(loss1), f"sp f32: loss {l_r} vs "
+              f"one process {loss1} (rtol 1e-5)")
+    check(max(worst, worst_r) <= 1.0, f"sp f32: {name} / {name_r} gradient "
+          f"off by {max(worst, worst_r)} of its limit")
+    for r, o in enumerate(outs):
+        counts, ms, losses = o["steps"]
+        for i, c in enumerate(counts):
+            check(c == SP_TRAIN_KERNELS, f"sp rank {r} step {i}: launches "
+                  f"{c}, want {SP_TRAIN_KERNELS}")
+        check(all(math.isfinite(a) and math.isfinite(b) for a, b in losses),
+              f"sp rank {r}: losses {losses}")
+        vc, finite = o["val"]
+        check(vc == SP_VAL_KERNELS and finite, f"sp rank {r} validation: "
+              f"launches {vc}, want {SP_VAL_KERNELS}; finite {finite}")
+    same = all(torch.equal(p, outs[1]["params"][n])
+               for n, p in outs[0]["params"].items())
+    check(same, "sp: the ranks' parameters parted after the bf16 steps")
+    counts, ms, losses = outs[0]["steps"]
+    phase("sp", f"{steps} bf16 steps at B={B}, L={cfg.dec_layers}, dropout "
+          f"{cfg.dropout_rate}: losses/grad norms rank 0 {losses}, rank 1 "
+          f"{outs[1]['steps'][2]}; parameters equal on both ranks bit for "
+          f"bit after the steps; per rank per step launches {counts[-1]}; "
+          f"step ms {[round(x, 2) for x in ms]} (CUDA events; two ranks "
+          "share the card's SMs); peak memory per rank "
+          f"{[round(o['peak_gb'], 2) for o in outs]} GB")
+    phase("sp", f"validation forward at B={B}: launches per rank "
+          f"{outs[0]['val'][0]}; outputs finite; wall of the phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def _ddp_rank(rank, world, cfg, B):
+    """A rank of the ddp phase: the f32 gate (one row a rank) and one bf16
+    release step (B/2 rows a rank); rank 0 then takes each one-process
+    step over the whole batch."""
+    from parq_torch.data.synthetic import make_batch, to_device
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.models import build_model
+    from parq_torch.parallel.mesh import make_mesh, replicated, shard_batch
+    from parq_torch.train.__main__ import TRAIN_KEYS
+    from parq_torch.train.train_step import make_optimizer, train_step
+    mesh = make_mesh(data=world, model=1)
+
+    def step(mcfg, rows, mesh):
+        model = build_model(mcfg, seed=0, device="cuda").train()
+        if mesh is not None:           # one process: no collective
+            replicated(model).set_parallel(mesh, False)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        reset_launch_counts()
+        m = train_step(model, make_optimizer(model), rows, gen,
+                       data_group=None if mesh is None else mesh.data_group)
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in m.items()}, _grads_cpu(model),
+                launch_counts())
+
+    out = {}
+    for name, mcfg, n in (("f32", _f32_gate_cfg(cfg, cfg.dropout_rate), 2),
+                          ("bf16", cfg, B)):
+        if name == "bf16":
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+        batch = to_device(make_batch(list(range(n)),
+                                     image_size=cfg.image_size),
+                          TRAIN_KEYS, "cuda")
+        out[name] = step(mcfg, shard_batch(batch, mesh), mesh)
+        torch.cuda.empty_cache()
+        if rank == 0:
+            out[name + "_one"] = step(mcfg, batch, None)
+            if name == "bf16":    # the yardstick: the same step in f32
+                out["f32_one_b8"] = step(dataclasses.replace(
+                    _f32_gate_cfg(cfg, cfg.dropout_rate),
+                    dec_layers=cfg.dec_layers), batch, None)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_ddp(cfg, B=8):
+    """Data parallelism, two ranks on the one card (gloo), dropout 0.1, the
+    same seeds as one process over the whole batch, so the ranks draw its
+    dropout masks and matcher draws: the f32 gate (TF32 off, L=2, one row a
+    rank) to the sp gate's tolerance, and one release bf16 step (B/2 rows a
+    rank). In bf16 the products over 4 rows instead of 8 round otherwise,
+    and with random weights the matcher's near ties then break otherwise
+    for some queries; that step is held to its bf16 tolerance measured in
+    the same run: twice the distance of the one-process bf16 step from the
+    same step in f32 (loss and ‖ΔG‖/‖G‖), and at least 5e-3 and 5e-2."""
+    outs = run_ranks(_ddp_rank, 2, cfg, B)
+    o = outs[0]
+    (m, grads, _), (m1, grads1, _) = o["f32"], o["f32_one"]
+    worst, name = _compare_grads(grads, grads1, 2e-4, 1e-3)
+    phase("ddp", f"backend {DIST_BACKEND}, 2 ranks on one card, MESH_DATA 2: "
+          f"f32 gate (TF32 off, L=2, 1 row a rank, dropout "
+          f"{cfg.dropout_rate}) loss {m['total_loss']:.7f} vs one process "
+          f"at B=2 {m1['total_loss']:.7f}; clipped gradients worst "
+          f"{worst:.3f} of the limit 2e-4·max(‖g‖, 1) + 1e-3 ({name}), "
+          f"‖ΔG‖/‖G‖ {_grad_gap(grads, grads1):.2e}")
+    check(abs(m["total_loss"] - m1["total_loss"]) <= 1e-5 *
+          abs(m1["total_loss"]) and worst <= 1.0 and
+          m["valid_bs"] == m1["valid_bs"], f"ddp f32: loss "
+          f"{m['total_loss']} vs {m1['total_loss']}, worst gradient {worst}")
+    (m, grads, counts), (m1, grads1, _) = o["bf16"], o["bf16_one"]
+    want = dict(TRAIN_KERNELS, pixel_align_sample=cfg.dec_layers,
+                flash_cross_attention_fwd_train=cfg.dec_layers)
+    for r, ro in enumerate(outs):
+        check(ro["bf16"][2] == want, f"ddp rank {r}: launches "
+              f"{ro['bf16'][2]}")
+    m32, grads32, _ = o["f32_one_b8"]
+    rel = abs(m["total_loss"] - m1["total_loss"]) / abs(m1["total_loss"])
+    gap = _grad_gap(grads, grads1)
+    rel32 = abs(m1["total_loss"] - m32["total_loss"]) / abs(m32["total_loss"])
+    gap32 = _grad_gap(grads1, grads32)
+    lim_l, lim_g = max(2 * rel32, 5e-3), max(2 * gap32, 5e-2)
+    phase("ddp", f"bf16 step, 2 ranks x {B // 2} rows, dropout "
+          f"{cfg.dropout_rate}: loss {m['total_loss']:.6f} vs one process at "
+          f"B={B} {m1['total_loss']:.6f} (rel {rel:.2e}; limit {lim_l:.2e}); "
+          f"grad norm {m['grad_norm']:.5f} vs {m1['grad_norm']:.5f}; clipped "
+          f"gradients ‖ΔG‖/‖G‖ {gap:.2e} (limit {lim_g:.2e}); the "
+          f"one-process step in f32: loss {m32['total_loss']:.6f} (bf16 off "
+          f"by {rel32:.2e}), grad norm {m32['grad_norm']:.5f}, ‖ΔG‖/‖G‖ "
+          f"{gap32:.2e}; valid_bs {m['valid_bs']:.0f} vs "
+          f"{m1['valid_bs']:.0f}; per rank launches {counts}")
+    check(rel <= lim_l and gap <= lim_g and m["valid_bs"] == m1["valid_bs"],
+          f"ddp bf16: loss rel {rel} (limit {lim_l}), ‖ΔG‖/‖G‖ {gap} "
+          f"(limit {lim_g})")
+
+
+def phase_fit_sp(smi_line):
+    """`python -m parq_torch.cli.train` under torchrun, 2 ranks on the card
+    (gloo), TPU.SEQ_PARALLEL True, MESH_MODEL 2: 2 steps, 1 validation, a
+    checkpoint written once (by rank 0), then the final validation."""
+    name = "fit-sp"
+    work = os.path.join(CLI_DIR, name)
+    shutil.rmtree(work, ignore_errors=True)
+    opts = cli_opts(name, "DATAMODULE.BATCH_SIZE", "8",
+                    "DATAMODULE.NUM_WORKERS", "0", "TRAINER.MAX_EPOCHS", "1",
+                    "TRAINER.LIMIT_TRAIN_BATCHES", "2",
+                    "TRAINER.VAL_CHECK_INTERVAL", "0.5",
+                    "TRAINER.LIMIT_VAL_BATCHES", "1",
+                    "TRAINER.LOG_EVERY_N_STEPS", "1",
+                    "CALLBACK.SAVE_TOP_K", "1", "TPU.SEQ_PARALLEL", "True",
+                    "TPU.MESH_MODEL", "2")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "parq_torch.cli.train", "--cfg",
+           os.path.join(ROOT, "configs", "train.yaml"), *opts]
+    env = dict(os.environ, PARQ_DIST_BACKEND=DIST_BACKEND,
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=400)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise SmokeFailure("fit-sp: torchrun did not finish in 400 s")
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"fit-sp: torchrun exited "
+          f"{proc.returncode}:\n{text[-3000:]}")
+    writes = [ln for ln in text.splitlines() if "checkpoint: wrote step" in ln]
+    backends = [ln for ln in text.splitlines() if "torch.distributed: rank" in
+                ln]
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train = [r for r in rows if r["stage"] == "train"]
+    vals = [r for r in rows if r["stage"] == "val/metrics"]
+    check(len(writes) == 1 and "step 2" in writes[0], f"fit-sp: checkpoint "
+          f"writes {writes}, want one at step 2")
+    check(len(backends) == 2 and all(f"backend {DIST_BACKEND}" in b
+                                     for b in backends),
+          f"fit-sp: process group lines {backends}")
+    check([r["step"] for r in train] == [1, 2] and len(vals) == 1
+          and all(math.isfinite(r["total_loss"]) for r in train),
+          f"fit-sp: metrics rows {rows}")
+    ckpts = sorted(f for f in os.listdir(os.path.join(work, "checkpoints"))
+                   if f.endswith(".pt"))
+    check(ckpts == ["step_2.pt"], f"fit-sp: checkpoints {ckpts}")
+    phase("fit", f"[{smi_line}] torchrun, 2 ranks, backend {DIST_BACKEND}, "
+          f"SEQ_PARALLEL, MESH_MODEL 2: steps {[r['step'] for r in train]} "
+          f"losses {[round(r['total_loss'], 5) for r in train]}, 1 "
+          f"validation, checkpoint {ckpts} written once (by rank 0), final "
+          f"validation on it; {wall:.1f} s wall")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1133,8 +1804,13 @@ def main():
                            errs)
         del engine
         torch.cuda.empty_cache()
+        sp_counts = phase_sp(cfg)
+        phase_ddp(cfg)
+        rows += split_rows(cfg, errs, sp_counts)
+        torch.cuda.empty_cache()
         ckpt, _ = phase_fit(smi_line)
         phase_eval(ckpt, smi_line)
+        phase_fit_sp(smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

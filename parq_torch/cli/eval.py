@@ -9,7 +9,10 @@ mean_latency_s. CHECKPOINT_PATH loads strictly: the port's checkpoints and
 state_dicts in the reference layout (parq_release.ckpt's); without it the
 weights are random from SEED. `DATAMODULE.DATA_PATH synthetic` evaluates 8
 synthetic snippets. It runs on CUDA and raises without a GPU unless
-TPU.PLATFORM (or env PARQ_PLATFORM) is "cpu".
+TPU.PLATFORM (or env PARQ_PLATFORM) is "cpu". Under torchrun (RANK,
+WORLD_SIZE, LOCAL_RANK) every rank evaluates the whole set on its
+cuda:LOCAL_RANK, the model group sharding the memory tokens under
+TPU.SEQ_PARALLEL, and rank 0 prints the metrics.
 """
 from __future__ import annotations
 
@@ -41,9 +44,13 @@ def main(argv=None):
     cfg.freeze()
     logging.basicConfig(level=logging.INFO, force=True)
 
+    from ..config import platform_device
     from ..data import ScanNetDataset, SnippetLoader, SyntheticDataset
+    from ..parallel.multihost import initialize_distributed, is_main_process
     from ..train.checkpoint import load_pretrained
     from ..train.loop import Trainer
+    initialize_distributed(int(cfg.TRAINER.NUM_NODES),
+                           platform_device(cfg))
     trainer = Trainer(cfg)              # rejects DEMO until vis is ported
     dm = cfg.DATAMODULE
     size = tuple(cfg.TPU.IMAGE_SIZE)
@@ -62,8 +69,9 @@ def main(argv=None):
     metrics = trainer.validate(loader,
                                limit_batches=cfg.TRAINER.LIMIT_VAL_BATCHES,
                                verbose=True, timing=True)
-    for key, value in metrics.items():
-        print(key, value, flush=True)
+    if is_main_process():
+        for key, value in metrics.items():
+            print(key, value, flush=True)
     return metrics
 
 

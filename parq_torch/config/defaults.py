@@ -217,14 +217,13 @@ def platform_device(cfg: CN) -> str:
 
 
 # Levers the port cannot pull yet: rejected when set away from these values.
+# (MESH_DATA, MESH_MODEL, SEQ_PARALLEL and NUM_NODES are honoured: the
+# Trainer lays its ranks out as a (data, model) grid; MESH_MODEL > 1
+# without SEQ_PARALLEL runs replicated, as the JAX Trainer does.)
 _NOT_YET = {
-    ("TPU", "MESH_MODEL"): (1,),
-    ("TPU", "SEQ_PARALLEL"): (False,),
-    ("TPU", "MESH_DATA"): (-1, 1),
     ("TPU", "REMAT"): (False,),
     ("TPU", "DEBUG_NANS"): (False,),
     ("TPU", "PARAM_DTYPE"): ("float32",),
-    ("TRAINER", "NUM_NODES"): (1,),
     ("MODEL", "DECODER", "TRANSFORMER", "SHARE_WEIGHTS"): (True,),
 }
 # TPU levers with no counterpart on the card: accepted and logged.
@@ -242,7 +241,7 @@ def check_card_support(cfg: CN) -> None:
         if node not in allowed:
             raise ValueError(
                 f"{'.'.join(path)}={node!r} is not supported by parq_torch "
-                f"yet (allowed: {list(allowed)}); see ROADMAP.md §A8")
+                f"yet (allowed: {list(allowed)}); see ROADMAP.md §A2")
     logging.getLogger(__name__).info(
         "TPU levers that do not apply on the card (the hand-written kernels "
         "always run): %s", ", ".join(f"{k}={cfg.TPU[k]!r}"

@@ -1,5 +1,5 @@
-// Kernels B2 and B3: flash cross-attention over the fused K/V buffer,
-// forward and backward, for Hopper (sm_90a). This file holds the C entry
+// Kernels B2 and B3: flash cross-attention, forward and backward, for
+// Hopper (sm_90a), on K and V in every layout of the JAX package. This file holds the C entry
 // points, the dispatch by dtype and head dim, the exact-f32 SIMT kernels
 // and the mma.sync bf16 kernels of the small head dims; the bf16 kernels of
 // the release head dim (D = 256) are in flash_fwd_sm90.cu (B2) and
@@ -11,9 +11,17 @@
 //   - train (the _fwd_lse / _train entries, :882-911): it also writes the
 //     rowwise logsumexp and applies weight dropout in the kernel.
 // B3 (the backward, _bwd_call :547, body _bwd_kernel :252) is at the end of
-// this file. All take the head-interleaved (B, N, H*2D) layout where lanes
-// [h*2D, h*2D+D) hold K_h and [h*2D+D, (h+1)*2D) hold V_h. The buffer is
-// read in place at offset h*2D; it is never sliced in memory.
+// this file. K and V (and dK and dV) each come as a strided view (KV in
+// flash_common.cuh: a pointer and row, batch and head strides), so one
+// kernel body reads every layout in place and nothing is sliced or copied:
+//   - fused (kv_fused=True): one head-interleaved (B, N, H*2D) buffer where
+//     lanes [h*2D, h*2D+D) hold K_h and [h*2D+D, (h+1)*2D) hold V_h;
+//   - natural (_kv_specs' kv_nc, :442-446): K and V as two (B, N, H*D)
+//     buffers, head h at lane offset h*D;
+//   - legacy (:447-454): (B, H, N, D) planes, padded past n_valid (rows
+//     past n_valid are never read). Its pre-transposed K (B, H, D, N) is
+//     transposed once by the Python wrapper.
+// `N` below is the number of valid tokens (n_valid).
 //
 //   o[b,h,q,:] = softmax_n(q[b,h,q,:] . K_h[b,n,:] / sqrt(D)) @ V_h[b,:,:]
 //
@@ -22,10 +30,14 @@
 // lse = m2 * ln 2 + ln(max(l, 1e-37)). Dropout multiplies p by
 // keep / (1 - rate) AFTER l has summed the undropped p (the weights are
 // dropped after normalisation, as flax and torch do). keep is the JAX
-// package's v1 counter hash (_keep_mask, :107-117), bit for bit:
+// package's counter hash (_keep_mask, :58-117), bit for bit, v1 or v2
+// (PARQ_DROPOUT_HASH) as the call says; v1:
 //   h0 = seed * 2654435761 ^ (b*H + h) * 2246822519
 //   h  = fmix32(h0 + row * 3266489917 + col * 668265263)
 //   keep = h >= min(floor(rate * 2^32), 2^32 - 1)
+// b is the sample's GLOBAL batch index, b_offset + the local one: a data-
+// parallel rank holding rows b_offset.. of the global batch draws what one
+// process over the whole batch draws.
 // with `row` local to the row's seed group (row mod Q/G), the seed taken
 // from the group (row div Q/G), and `col` the GLOBAL kv index. Each
 // fragment element derives its own row and seed from its global q row, so
@@ -73,10 +85,13 @@
 namespace {
 
 using parq::Dropout;
+using parq::KV;
+using parq::drop_bh;
 using parq::kLn2;
 using parq::kLog2e;
 using parq::kMaskValue;
 using parq::keep_bit;
+using parq::kv_at;
 using parq::row_h0;
 
 // ------------------------------------------------------------ bf16 path --
@@ -144,8 +159,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
 
 template <int D, bool kTrain>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ kv,
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, KV k, KV v,
                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                       Dropout drop, int H, int Q, int N, float qscale) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
@@ -161,9 +175,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, tig = lane & 3;  // mma fragment row / column pair
   const int q0 = tile * kQT;
   const __nv_bfloat16* qbh = q + ((long long)b * H + h) * Q * D;
-  const long long kv_row = (long long)H * 2 * D;
-  const __nv_bfloat16* kvb = kv + (long long)b * N * kv_row
-                           + (long long)h * 2 * D;
+  const __nv_bfloat16* kb = kv_at<__nv_bfloat16>(k, b, h);
+  const __nv_bfloat16* vb = kv_at<__nv_bfloat16>(v, b, h);
 
   for (int c = tid; c < kQT * CH; c += kThreads) {
     const int r = c / CH, col = (c % CH) * 8;
@@ -178,9 +191,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c = tid; c < kBK * CH; c += kThreads) {
       const int r = c / CH, col = (c % CH) * 8;
       const bool ok = n0 + r < N;
-      const __nv_bfloat16* row = kvb + (ok ? (long long)(n0 + r) * kv_row : 0);
-      cp_async16(dk + r * S + col, row + col, ok);
-      cp_async16(dv + r * S + col, row + D + col, ok);
+      const long long n = ok ? n0 + r : 0;
+      cp_async16(dk + r * S + col, kb + n * k.row + col, ok);
+      cp_async16(dv + r * S + col, vb + n * v.row + col, ok);
     }
   };
   const int nblocks = (N + kBK - 1) / kBK;
@@ -197,7 +210,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
   uint32_t h00 = 0, h01 = 0, lr0 = 0, lr1 = 0;  // dropout: h0, local rows
   if (kTrain && drop.thresh) {
-    const int bh = b * H + h;
+    const int bh = drop_bh(drop, b, H, h);
     const int r0 = min(row0, Q - 1), r1 = min(row1, Q - 1);
     h00 = row_h0(drop, bh, r0);
     h01 = row_h0(drop, bh, r1);
@@ -270,10 +283,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       if (kTrain && drop.thresh) {  // after l: l sums the undropped p
         const uint32_t c = n0 + j * 8 + tig * 2;
         const float ks = drop.keep_scale;
-        p0 = keep_bit(h00, lr0, c, drop.thresh) ? p0 * ks : 0.f;
-        p1 = keep_bit(h00, lr0, c + 1, drop.thresh) ? p1 * ks : 0.f;
-        p2 = keep_bit(h01, lr1, c, drop.thresh) ? p2 * ks : 0.f;
-        p3 = keep_bit(h01, lr1, c + 1, drop.thresh) ? p3 * ks : 0.f;
+        p0 = keep_bit(drop, h00, lr0, c) ? p0 * ks : 0.f;
+        p1 = keep_bit(drop, h00, lr0, c + 1) ? p1 * ks : 0.f;
+        p2 = keep_bit(drop, h01, lr1, c) ? p2 * ks : 0.f;
+        p3 = keep_bit(drop, h01, lr1, c + 1) ? p3 * ks : 0.f;
       }
       p[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);      // a0 / a2
       p[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);  // a1 / a3
@@ -330,9 +343,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D, bool kTrain>
-cudaError_t launch(const void* q, const void* kv, void* o, float* lse,
-                   Dropout drop, int B, int H, int Q, int N, float qscale,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const KV& k, const KV& v, void* o,
+                   float* lse, Dropout drop, int B, int H, int Q, int N,
+                   float qscale, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16_kernel<D, kTrain>,
@@ -340,9 +353,8 @@ cudaError_t launch(const void* q, const void* kv, void* o, float* lse,
   if (err != cudaSuccess) return err;
   const dim3 grid((Q + kQT - 1) / kQT, H, B);
   flash_fwd_bf16_kernel<D, kTrain><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(kv), static_cast<__nv_bfloat16*>(o),
-      lse, drop, H, Q, N, qscale);
+      static_cast<const __nv_bfloat16*>(q), k, v,
+      static_cast<__nv_bfloat16*>(o), lse, drop, H, Q, N, qscale);
   return cudaGetLastError();
 }
 
@@ -379,7 +391,7 @@ constexpr int smem_bytes() {
 
 template <int D, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ kv,
+flash_fwd_f32_kernel(const float* __restrict__ q, KV k, KV v,
                      float* __restrict__ o, float* __restrict__ lse,
                      Dropout drop, int H, int Q, int N, float qscale) {
   static_assert(D % 32 == 0, "D must be a multiple of 32");
@@ -414,8 +426,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ kv,
     for (int k = 0; k < D / 32; ++k) acc[r][k] = 0.f;
   }
 
-  const long long kv_row = (long long)H * 2 * D;
-  const float* kvb = kv + (long long)b * N * kv_row + (long long)h * 2 * D;
+  const float* kb = kv_at<float>(k, b, h);
+  const float* vb = kv_at<float>(v, b, h);
   const float* sQw = sQ + warp * kRows * D;
   float* sPw = sP + warp * kRows * kBK;
   uint32_t h0[kRows], lrow[kRows];  // dropout: per-row h0 and local row
@@ -423,7 +435,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int row = min(q0 + warp * kRows + r, Q - 1);
-      h0[r] = row_h0(drop, b * H + h, row);
+      h0[r] = row_h0(drop, drop_bh(drop, b, H, h), row);
       lrow[r] = row % drop.group_rows;
     }
   }
@@ -434,9 +446,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ kv,
       const int r = e / D, c = e % D;
       float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
       if (n0 + r < N) {
-        const float* row = kvb + (long long)(n0 + r) * kv_row;
-        kk = *reinterpret_cast<const float4*>(row + c);
-        vv = *reinterpret_cast<const float4*>(row + D + c);
+        kk = *reinterpret_cast<const float4*>(kb + (n0 + r) * k.row + c);
+        vv = *reinterpret_cast<const float4*>(vb + (n0 + r) * v.row + c);
       }
       *reinterpret_cast<float4*>(sK + r * KS + c) = kk;
       *reinterpret_cast<float4*>(sV + r * D + c) = vv;
@@ -472,7 +483,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ kv,
       l[r] = l[r] * alpha + warp_sum(p);
       m[r] = m_new;
       if (kTrain && drop.thresh)  // after l: l sums the undropped p
-        p = keep_bit(h0[r], lrow[r], n0 + lane, drop.thresh)
+        p = keep_bit(drop, h0[r], lrow[r], n0 + lane)
                 ? p * drop.keep_scale : 0.f;
       sPw[r * kBK + lane] = p;
 #pragma unroll
@@ -512,9 +523,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 }
 
 template <int D, bool kTrain>
-cudaError_t launch(const void* q, const void* kv, void* o, float* lse,
-                   Dropout drop, int B, int H, int Q, int N, float qscale,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const KV& k, const KV& v, void* o,
+                   float* lse, Dropout drop, int B, int H, int Q, int N,
+                   float qscale, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32_kernel<D, kTrain>,
@@ -522,8 +533,8 @@ cudaError_t launch(const void* q, const void* kv, void* o, float* lse,
   if (err != cudaSuccess) return err;
   const dim3 grid((Q + kQT - 1) / kQT, H, B);
   flash_fwd_f32_kernel<D, kTrain><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kv),
-      static_cast<float*>(o), lse, drop, H, Q, N, qscale);
+      static_cast<const float*>(q), k, v, static_cast<float*>(o), lse, drop,
+      H, Q, N, qscale);
   return cudaGetLastError();
 }
 
@@ -532,8 +543,8 @@ cudaError_t launch(const void* q, const void* kv, void* o, float* lse,
 // ------------------------------------------------------- B3: backward --
 //
 // Replaces cross_attention_pallas.py:_bwd_call (:547), body _bwd_kernel
-// (:252), in its fused-KV form (kv_fused=True), as the VJP of the _train
-// and _precomputed entries (:814-852). For each (b, h), from q, kv, do,
+// (:252), in every KV form, as the VJP of the _train and _precomputed
+// entries (:814-852, :665-697). For each (b, h), from q, kv, do,
 // the forward's lse and delta = rowsum(do * o) (computed outside, f32):
 //   p  = exp(s - lse),  s = q . k / sqrt(D)    (recomputed, never stored)
 //   w  = p * keep / (1 - rate)                 (the forward's weights)
@@ -541,8 +552,9 @@ cudaError_t launch(const void* q, const void* kv, void* o, float* lse,
 //   ds = w * dw - p * delta
 //   dq = sm_scale * ds @ k,  dk = sm_scale * ds^T @ q,  dv = w^T @ do
 // In bf16, ds and w are rounded to bf16 before the last three products,
-// as the JAX kernel does (:341-342). dK|dV are written into the fused
-// (B, N, H*2D) layout, summed over ALL q rows: at the release fold that is
+// as the JAX kernel does (:341-342). dK and dV are written through their
+// own views (into one fused (B, N, H*2D) dKV buffer for the fused form),
+// summed over ALL q rows: at the release fold that is
 // 2048 rows in 8 seed groups, so the cotangents of all 8 iterations
 // accumulate inside the kernel.
 //
@@ -621,12 +633,11 @@ constexpr int dkv_smem_bytes() {
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ kv,
+flash_bwd_dkv_kernel(const float* __restrict__ q, KV k, KV v,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, Dropout drop,
-                     float* __restrict__ dkv, int H, int Q, int N,
-                     float sm_scale) {
+                     const float* __restrict__ delta, Dropout drop, KV dk_out,
+                     KV dv_out, int H, int Q, int N, float sm_scale) {
   constexpr int KS = D + kPad;
   constexpr int DC = D / kWarps;  // dK/dV columns per thread
   extern __shared__ float4 smem_raw[];
@@ -641,11 +652,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 
   const int n0 = blockIdx.x * kBK, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = b * H + h;
-  const long long kv_row = (long long)H * 2 * D;
-  const float* kvb = kv + ((long long)b * N + n0) * kv_row + (long long)h * 2 * D;
-  stage<D>(sK, KS, kvb, kv_row, kBK, N - n0, tid);
-  stage<D>(sV, KS, kvb + D, kv_row, kBK, N - n0, tid);
+  const int bh = b * H + h, dbh = drop_bh(drop, b, H, h);
+  stage<D>(sK, KS, kv_at<float>(k, b, h) + n0 * k.row, k.row, kBK, N - n0,
+           tid);
+  stage<D>(sV, KS, kv_at<float>(v, b, h) + n0 * v.row, v.row, kBK, N - n0,
+           tid);
 
   float dk[DC], dv[DC];
 #pragma unroll
@@ -673,8 +684,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ kv,
       const float dw = dot<D>(sDO + warp * D, sV + lane * KS);
       bool keep = true;
       if (drop.thresh && row < Q)
-        keep = keep_bit(row_h0(drop, bh, row), row % drop.group_rows,
-                        n0 + lane, drop.thresh);
+        keep = keep_bit(drop, row_h0(drop, dbh, row), row % drop.group_rows,
+                        n0 + lane);
       float w, ds;
       grads_of_pair(s, dw, sL[warp], sD[warp], row < Q && col_ok, keep,
                        drop.thresh ? drop.keep_scale : 1.f, &w, &ds);
@@ -704,12 +715,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ kv,
   }
 
   if (!col_ok) return;
-  float* out =
-      dkv + ((long long)b * N + n0 + lane) * kv_row + (long long)h * 2 * D;
+  float* out_k = kv_at<float>(dk_out, b, h) + (n0 + lane) * dk_out.row;
+  float* out_v = kv_at<float>(dv_out, b, h) + (n0 + lane) * dv_out.row;
 #pragma unroll
   for (int i = 0; i < DC; ++i) {
-    out[c0 + i] = dk[i] * sm_scale;
-    out[D + c0 + i] = dv[i];
+    out_k[c0 + i] = dk[i] * sm_scale;
+    out_v[c0 + i] = dv[i];
   }
 }
 
@@ -720,7 +731,7 @@ constexpr int dq_smem_bytes() {
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ kv,
+flash_bwd_dq_kernel(const float* __restrict__ q, KV k, KV v,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, Dropout drop,
@@ -751,22 +762,20 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ kv,
     rd[r] = ok ? delta[(long long)bh * Q + row] : 0.f;
     if (drop.thresh) {
       const int rr = min(row, Q - 1);
-      h0[r] = row_h0(drop, bh, rr);
+      h0[r] = row_h0(drop, drop_bh(drop, b, H, h), rr);
       lrow[r] = rr % drop.group_rows;
     }
 #pragma unroll
     for (int k = 0; k < D / 32; ++k) acc[r][k] = 0.f;
   }
 
-  const long long kv_row = (long long)H * 2 * D;
-  const float* kvb = kv + (long long)b * N * kv_row + (long long)h * 2 * D;
+  const float* kb = kv_at<float>(k, b, h);
+  const float* vb = kv_at<float>(v, b, h);
   float* sDSw = sDS + warp * kRows * kBK;
   for (int n0 = 0; n0 < N; n0 += kBK) {
     __syncthreads();  // every warp is done with the previous K/V block
-    stage<D>(sK, KS, kvb + (long long)n0 * kv_row, kv_row, kBK, N - n0,
-                tid);
-    stage<D>(sV, KS, kvb + (long long)n0 * kv_row + D, kv_row, kBK,
-                N - n0, tid);
+    stage<D>(sK, KS, kb + n0 * k.row, k.row, kBK, N - n0, tid);
+    stage<D>(sV, KS, vb + n0 * v.row, v.row, kBK, N - n0, tid);
     __syncthreads();
     const bool col_ok = n0 + lane < N;
 #pragma unroll
@@ -775,7 +784,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ kv,
       const float s = dot<D>(sQ + lr * D, sK + lane * KS) * sm_scale;
       const float dw = dot<D>(sDO + lr * D, sV + lane * KS);
       const bool keep = drop.thresh
-          ? keep_bit(h0[r], lrow[r], n0 + lane, drop.thresh) : true;
+          ? keep_bit(drop, h0[r], lrow[r], n0 + lane) : true;
       float w, ds;
       grads_of_pair(s, dw, rl[r], rd[r], q0 + lr < Q && col_ok, keep,
                        drop.thresh ? drop.keep_scale : 1.f, &w, &ds);
@@ -810,10 +819,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* kv, const void* dout,
+cudaError_t launch(const void* q, const KV& k, const KV& v, const void* dout,
                    const float* lse, const float* delta, Dropout drop,
-                   void* dq, void* dkv, int B, int H, int Q, int N,
-                   cudaStream_t stream) {
+                   void* dq, const KV& dk, const KV& dv, int B, int H, int Q,
+                   int N, cudaStream_t stream) {
   const float sm_scale = 1.f / sqrtf(static_cast<float>(D));
   constexpr int smem_kv = dkv_smem_bytes<D>();
   constexpr int smem_q = dq_smem_bytes<D>();
@@ -826,17 +835,15 @@ cudaError_t launch(const void* q, const void* kv, const void* dout,
                              smem_q);
   if (err != cudaSuccess) return err;
   const float* tq = static_cast<const float*>(q);
-  const float* tkv = static_cast<const float*>(kv);
   const float* tdo = static_cast<const float*>(dout);
   flash_bwd_dkv_kernel<D>
       <<<dim3((N + kBK - 1) / kBK, H, B), kThreads, smem_kv, stream>>>(
-          tq, tkv, tdo, lse, delta, drop, static_cast<float*>(dkv), H, Q, N,
-          sm_scale);
+          tq, k, v, tdo, lse, delta, drop, dk, dv, H, Q, N, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dq_kernel<D>
       <<<dim3((Q + kQT - 1) / kQT, H, B), kThreads, smem_q, stream>>>(
-          tq, tkv, tdo, lse, delta, drop, static_cast<float*>(dq), H, Q, N,
+          tq, k, v, tdo, lse, delta, drop, static_cast<float*>(dq), H, Q, N,
           sm_scale);
   return cudaGetLastError();
 }
@@ -896,11 +903,11 @@ __device__ __forceinline__ void pack_a(const float (*c)[4], uint32_t (*a)[4]) {
 
 template <int D>
 __global__ void __launch_bounds__(256, 1)
-flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, KV k, KV v,
                         const bf16* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, Dropout drop,
-                        bf16* __restrict__ dkv, int H, int Q, int N,
+                        KV dk_out, KV dv_out, int H, int Q, int N,
                         float sm_scale) {
   constexpr int S = row_stride<D>();
   constexpr int CH = D / 8;   // 16-byte chunks per row
@@ -918,18 +925,18 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
   const int c0 = (warp >> 2) * DH;
-  const int bh = b * H + h;
-  const long long kv_row = (long long)H * 2 * D;
-  const bf16* kvb = kv + (long long)b * N * kv_row + (long long)h * 2 * D;
+  const int bh = b * H + h, dbh = drop_bh(drop, b, H, h);
+  const bf16* kb = kv_at<bf16>(k, b, h);
+  const bf16* vb = kv_at<bf16>(v, b, h);
   const bf16* qbh = q + (long long)bh * Q * D;
   const bf16* dobh = dout + (long long)bh * Q * D;
 
   for (int c = tid; c < kKVT * CH; c += 256) {
     const int r = c / CH, col = (c % CH) * 8;
     const bool ok = n0 + r < N;
-    const bf16* row = kvb + (ok ? (long long)(n0 + r) * kv_row : 0);
-    cp_async16(sK + r * S + col, row + col, ok);
-    cp_async16(sV + r * S + col, row + D + col, ok);
+    const long long n = ok ? n0 + r : 0;
+    cp_async16(sK + r * S + col, kb + n * k.row + col, ok);
+    cp_async16(sV + r * S + col, vb + n * v.row + col, ok);
   }
   auto load_q = [&](int r0, int buf) {
     bf16* tq = sQ + buf * kQS * S;
@@ -1016,7 +1023,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
         const int ql = j * 8 + tig * 2 + c, row = r0 + ql;
         uint32_t h0 = 0, lrow = 0;
         if (drop.thresh && row < Q) {
-          h0 = row_h0(drop, bh, row);
+          h0 = row_h0(drop, dbh, row);
           lrow = row % drop.group_rows;
         }
 #pragma unroll
@@ -1024,7 +1031,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
           const int e = hi * 2 + c;
           const float p = exp2f(st[j][e] * qk - cL[ql]);
           const bool keep = !drop.thresh || (row < Q &&
-              keep_bit(h0, lrow, tok0 + hi * 8, drop.thresh));
+              keep_bit(drop, h0, lrow, tok0 + hi * 8));
           const float w = keep ? p * ks : 0.f;
           dwt[j][e] = w * dwt[j][e] - p * cD[ql];
           st[j][e] = w;
@@ -1054,7 +1061,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
     __syncthreads();  // the next prefetch overwrites this buffer
   }
 
-  bf16* out = dkv + (long long)b * N * kv_row + (long long)h * 2 * D;
+  bf16* out_k = kv_at<bf16>(dk_out, b, h);
+  bf16* out_v = kv_at<bf16>(dv_out, b, h);
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {
     const int col = c0 + n * 8 + tig * 2;
@@ -1062,10 +1070,9 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
     for (int hi = 0; hi < 2; ++hi) {
       const uint32_t tok = tok0 + hi * 8;
       if (tok >= (uint32_t)N) continue;
-      bf16* row = out + (long long)tok * kv_row;
-      *reinterpret_cast<uint32_t*>(row + col) =
+      *reinterpret_cast<uint32_t*>(out_k + tok * dk_out.row + col) =
           pack_bf16(dk[n][hi * 2] * sm_scale, dk[n][hi * 2 + 1] * sm_scale);
-      *reinterpret_cast<uint32_t*>(row + D + col) =
+      *reinterpret_cast<uint32_t*>(out_v + tok * dv_out.row + col) =
           pack_bf16(dv[n][hi * 2], dv[n][hi * 2 + 1]);
     }
   }
@@ -1073,7 +1080,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
 
 template <int D>
 __global__ void __launch_bounds__(128, 1)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, KV k, KV v,
                        const bf16* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, Dropout drop,
@@ -1094,8 +1101,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   const int bh = b * H + h;
   const bf16* qbh = q + (long long)bh * Q * D;
   const bf16* dobh = dout + (long long)bh * Q * D;
-  const long long kv_row = (long long)H * 2 * D;
-  const bf16* kvb = kv + (long long)b * N * kv_row + (long long)h * 2 * D;
+  const bf16* kb = kv_at<bf16>(k, b, h);
+  const bf16* vb = kv_at<bf16>(v, b, h);
 
   for (int c = tid; c < kQT * CH; c += 128) {
     const int r = c / CH, col = (c % CH) * 8;
@@ -1111,9 +1118,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
     for (int c = tid; c < kBK * CH; c += 128) {
       const int r = c / CH, col = (c % CH) * 8;
       const bool ok = m0 + r < N;
-      const bf16* row = kvb + (ok ? (long long)(m0 + r) * kv_row : 0);
-      cp_async16(dk_ + r * S + col, row + col, ok);
-      cp_async16(dv_ + r * S + col, row + D + col, ok);
+      const long long n = ok ? m0 + r : 0;
+      cp_async16(dk_ + r * S + col, kb + n * k.row + col, ok);
+      cp_async16(dv_ + r * S + col, vb + n * v.row + col, ok);
     }
   };
   const int nblocks = (N + kBK - 1) / kBK;
@@ -1130,7 +1137,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
     rl[hi] = ok ? lse[(long long)bh * Q + row] * kLog2e : 1e30f;
     rd[hi] = ok ? delta[(long long)bh * Q + row] : 0.f;
     if (drop.thresh && ok) {
-      h0[hi] = row_h0(drop, bh, row);
+      h0[hi] = row_h0(drop, drop_bh(drop, b, H, h), row);
       lrow[hi] = row % drop.group_rows;
     }
   }
@@ -1195,7 +1202,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
         const float p = col < (uint32_t)N ? exp2f(s[j][e] * qk - rl[hi])
                                           : 0.f;
         const bool keep = !drop.thresh ||
-            keep_bit(h0[hi], lrow[hi], col, drop.thresh);
+            keep_bit(drop, h0[hi], lrow[hi], col);
         const float w = keep ? p * ks : 0.f;
         dw[j][e] = w * dw[j][e] - p * rd[hi];
       }
@@ -1233,10 +1240,10 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* kv, const void* dout,
+cudaError_t launch(const void* q, const KV& k, const KV& v, const void* dout,
                    const float* lse, const float* delta, Dropout drop,
-                   void* dq, void* dkv, int B, int H, int Q, int N,
-                   cudaStream_t stream) {
+                   void* dq, const KV& dk, const KV& dv, int B, int H, int Q,
+                   int N, cudaStream_t stream) {
   const float sm_scale = 1.f / sqrtf(static_cast<float>(D));
   constexpr int smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -1248,17 +1255,15 @@ cudaError_t launch(const void* q, const void* kv, const void* dout,
                              smem);
   if (err != cudaSuccess) return err;
   const bf16* tq = static_cast<const bf16*>(q);
-  const bf16* tkv = static_cast<const bf16*>(kv);
   const bf16* tdo = static_cast<const bf16*>(dout);
   flash_bwd_dkv_tc_kernel<D>
       <<<dim3((N + kKVT - 1) / kKVT, H, B), 256, smem, stream>>>(
-          tq, tkv, tdo, lse, delta, drop, static_cast<bf16*>(dkv), H, Q, N,
-          sm_scale);
+          tq, k, v, tdo, lse, delta, drop, dk, dv, H, Q, N, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dq_tc_kernel<D>
       <<<dim3((Q + kQT - 1) / kQT, H, B), 128, smem, stream>>>(
-          tq, tkv, tdo, lse, delta, drop, static_cast<bf16*>(dq), H, Q, N,
+          tq, k, v, tdo, lse, delta, drop, static_cast<bf16*>(dq), H, Q, N,
           sm_scale);
   return cudaGetLastError();
 }
@@ -1269,38 +1274,39 @@ cudaError_t launch(const void* q, const void* kv, const void* dout,
 // flash_fwd_sm90.cu (the only one that takes splits > 1); bf16 at D = 64,
 // 128 -> tc (mma.sync). A static choice by dtype and head dim.
 template <int D>
-cudaError_t dispatch_fwd(const void* q, const void* kv, void* o, float* lse,
-                         float* scratch, int splits, Dropout drop, int B,
-                         int H, int Q, int N, int is_bf16, cudaStream_t s) {
+cudaError_t dispatch_fwd(const void* q, const KV& k, const KV& v, void* o,
+                         float* lse, float* scratch, int splits, Dropout drop,
+                         int B, int H, int Q, int N, int is_bf16,
+                         cudaStream_t s) {
   const float qscale = kLog2e / sqrtf(static_cast<float>(D));
   if constexpr (D == parq::sm90::kD) {
     if (is_bf16) {
       float* part_lse = scratch == nullptr ? nullptr
           : scratch + (long long)splits * B * H * Q * D;
-      return parq::sm90::flash_fwd(q, kv, o, lse, scratch, part_lse, splits,
-                                   drop, B, H, Q, N, s);
+      return parq::sm90::flash_fwd(q, k, v, o, lse, scratch, part_lse,
+                                   splits, drop, B, H, Q, N, s);
     }
   } else {
     if (is_bf16 && splits == 1)
       return lse == nullptr
-          ? tc::launch<D, false>(q, kv, o, lse, drop, B, H, Q, N, qscale, s)
-          : tc::launch<D, true>(q, kv, o, lse, drop, B, H, Q, N, qscale, s);
+          ? tc::launch<D, false>(q, k, v, o, lse, drop, B, H, Q, N, qscale, s)
+          : tc::launch<D, true>(q, k, v, o, lse, drop, B, H, Q, N, qscale, s);
   }
   if (is_bf16 || splits != 1) return cudaErrorInvalidValue;
   return lse == nullptr
-      ? simt::launch<D, false>(q, kv, o, lse, drop, B, H, Q, N, qscale, s)
-      : simt::launch<D, true>(q, kv, o, lse, drop, B, H, Q, N, qscale, s);
+      ? simt::launch<D, false>(q, k, v, o, lse, drop, B, H, Q, N, qscale, s)
+      : simt::launch<D, true>(q, k, v, o, lse, drop, B, H, Q, N, qscale, s);
 }
 
-cudaError_t fwd(const void* q, const void* kv, void* o, float* lse,
+cudaError_t fwd(const void* q, const KV& k, const KV& v, void* o, float* lse,
                 void* scratch, int splits, Dropout drop, int B, int H, int Q,
                 int N, int D, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(scratch);
   switch (D) {
-    case 64: return dispatch_fwd<64>(q, kv, o, lse, sc, splits, drop, B, H, Q, N, is_bf16, s);
-    case 128: return dispatch_fwd<128>(q, kv, o, lse, sc, splits, drop, B, H, Q, N, is_bf16, s);
-    case 256: return dispatch_fwd<256>(q, kv, o, lse, sc, splits, drop, B, H, Q, N, is_bf16, s);
+    case 64: return dispatch_fwd<64>(q, k, v, o, lse, sc, splits, drop, B, H, Q, N, is_bf16, s);
+    case 128: return dispatch_fwd<128>(q, k, v, o, lse, sc, splits, drop, B, H, Q, N, is_bf16, s);
+    case 256: return dispatch_fwd<256>(q, k, v, o, lse, sc, splits, drop, B, H, Q, N, is_bf16, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1308,83 +1314,147 @@ cudaError_t fwd(const void* q, const void* kv, void* o, float* lse,
 // Backward: f32 -> bwd (SIMT); bf16 at D = 256 -> flash_bwd_sm90.cu (wgmma);
 // bf16 at D = 64, 128 -> tcb (mma.sync).
 template <int D>
-cudaError_t dispatch_bwd_d(const void* q, const void* kv, const void* dout,
-                           const float* lse, const float* delta, Dropout drop,
-                           void* dq, void* dkv, int B, int H, int Q, int N,
-                           int is_bf16, cudaStream_t s) {
+cudaError_t dispatch_bwd_d(const void* q, const KV& k, const KV& v,
+                           const void* dout, const float* lse,
+                           const float* delta, Dropout drop, void* dq,
+                           const KV& dk, const KV& dv, int B, int H, int Q,
+                           int N, int is_bf16, cudaStream_t s) {
   if (!is_bf16)
-    return bwd::launch<D>(q, kv, dout, lse, delta, drop, dq, dkv, B, H, Q, N,
-                          s);
+    return bwd::launch<D>(q, k, v, dout, lse, delta, drop, dq, dk, dv, B, H,
+                          Q, N, s);
   if constexpr (D == parq::sm90::kD)
-    return parq::sm90::flash_bwd(q, kv, dout, lse, delta, drop, dq, dkv, B, H,
-                                 Q, N, s);
+    return parq::sm90::flash_bwd(q, k, v, dout, lse, delta, drop, dq, dk, dv,
+                                 B, H, Q, N, s);
   else
-    return tcb::launch<D>(q, kv, dout, lse, delta, drop, dq, dkv, B, H, Q, N,
-                          s);
+    return tcb::launch<D>(q, k, v, dout, lse, delta, drop, dq, dk, dv, B, H,
+                          Q, N, s);
 }
 
-cudaError_t bwd_all(const void* q, const void* kv, const void* dout,
-                    const float* lse, const float* delta, Dropout drop,
-                    void* dq, void* dkv, int B, int H, int Q, int N, int D,
-                    int is_bf16, cudaStream_t s) {
+cudaError_t bwd_all(const void* q, const KV& k, const KV& v,
+                    const void* dout, const float* lse, const float* delta,
+                    Dropout drop, void* dq, const KV& dk, const KV& dv, int B,
+                    int H, int Q, int N, int D, int is_bf16, cudaStream_t s) {
   switch (D) {
-    case 64: return dispatch_bwd_d<64>(q, kv, dout, lse, delta, drop, dq, dkv, B, H, Q, N, is_bf16, s);
-    case 128: return dispatch_bwd_d<128>(q, kv, dout, lse, delta, drop, dq, dkv, B, H, Q, N, is_bf16, s);
-    case 256: return dispatch_bwd_d<256>(q, kv, dout, lse, delta, drop, dq, dkv, B, H, Q, N, is_bf16, s);
+    case 64: return dispatch_bwd_d<64>(q, k, v, dout, lse, delta, drop, dq, dk, dv, B, H, Q, N, is_bf16, s);
+    case 128: return dispatch_bwd_d<128>(q, k, v, dout, lse, delta, drop, dq, dk, dv, B, H, Q, N, is_bf16, s);
+    case 256: return dispatch_bwd_d<256>(q, k, v, dout, lse, delta, drop, dq, dk, dv, B, H, Q, N, is_bf16, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// K and V of the fused (B, N, H*2D) buffer as two views.
+KV fused_k(const void* kv, int H, int N, int D) {
+  const long long row = 2LL * H * D;
+  return KV{const_cast<void*>(kv), row, N * row, 2LL * D};
+}
+
+KV fused_v(const void* kv, int H, int N, int D, int elem_bytes) {
+  KV v = fused_k(kv, H, N, D);
+  v.ptr = static_cast<char*>(v.ptr) + (long long)D * elem_bytes;
+  return v;
+}
+
+Dropout make_dropout(const void* seeds, int group_rows, unsigned thresh,
+                     float keep_scale, int b_offset, int v2) {
+  return Dropout{static_cast<const int*>(seeds), group_rows, thresh,
+                 keep_scale, b_offset, v2};
+}
+
 }  // namespace
 
-// q (B, H, Q, D) and o (B, H, Q, D) contiguous, kv (B, N, H*2D) contiguous,
-// all bf16 (is_bf16=1) or all f32; D in {64, 128, 256}; N >= 1; every
-// pointer 16-byte aligned. splits (1..4) cuts the KV range over that many
-// CTAs per q tile: above 1 only for bf16 at D = 256, with scratch of
-// splits * B*H*Q * (D + 1) floats (the f32 partials, then their logsumexp),
-// and no split may be left without a 64-token block. Returns the launch's
-// cudaError_t (cudaErrorInvalidValue for an unsupported combination).
+// B2 on K and V given as strided views (parq::KV: pointer and row, batch and
+// head strides in elements, unit stride along D). q and o (B, H, Q, D)
+// contiguous, all bf16 (is_bf16=1) or all f32; D in {64, 128, 256}; N >= 1
+// the number of valid tokens; every pointer 16-byte aligned and every
+// stride a multiple of 8 elements. For bf16 at D = 256 each view must be
+// one a tensor map can take (parq::sm90::kv_map): heads side by side in a
+// row, or one plane per head with the samples' planes back to back.
+// splits (1..4) cuts the KV range over that many CTAs per q tile: above 1
+// only for bf16 at D = 256, with scratch of splits * B*H*Q * (D + 1) floats
+// (the f32 partials, then their logsumexp), and no split may be left
+// without a 64-token block. Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for an unsupported combination).
+extern "C" int parq_flash_fwd_kv(const void* q, KV k, KV v, void* o,
+                                 void* scratch, int splits, int B, int H,
+                                 int Q, int N, int D, int is_bf16,
+                                 void* stream) {
+  const Dropout none{nullptr, 1, 0u, 1.f, 0, 0};
+  return static_cast<int>(fwd(q, k, v, o, nullptr, scratch, splits, none, B,
+                              H, Q, N, D, is_bf16, stream));
+}
+
+// The train form of B2: as parq_flash_fwd_kv, and also lse (B, H, Q) f32
+// in natural-log units. seeds: (G,) int32 on the device with group_rows =
+// Q / G; thresh = min(floor(rate * 2^32), 2^32 - 1) (0: no dropout) and
+// keep_scale = 1 / (1 - rate), both computed by the caller from the double
+// rate so the threshold matches the JAX package's exactly; b_offset: the
+// global batch index of sample 0 (the hash keys on the global b); v2: 1 for
+// the v2 hash.
+extern "C" int parq_flash_fwd_kv_lse(const void* q, KV k, KV v, void* o,
+                                     void* lse, const void* seeds,
+                                     void* scratch, int splits, int B, int H,
+                                     int Q, int N, int D, int group_rows,
+                                     unsigned thresh, float keep_scale,
+                                     int b_offset, int v2, int is_bf16,
+                                     void* stream) {
+  return static_cast<int>(fwd(
+      q, k, v, o, static_cast<float*>(lse), scratch, splits,
+      make_dropout(seeds, group_rows, thresh, keep_scale, b_offset, v2), B,
+      H, Q, N, D, is_bf16, stream));
+}
+
+// B3. q, dout, dq (B, H, Q, D) contiguous; k, v, dk, dv strided views as
+// for parq_flash_fwd_kv, all bf16 (is_bf16=1) or all f32; lse and delta
+// (B, H, Q) f32; the dropout arguments as for parq_flash_fwd_kv_lse. dK and
+// dV are written for every valid row of every head, summed over all Q rows.
+extern "C" int parq_flash_bwd_kv(const void* q, KV k, KV v, const void* dout,
+                                 const void* lse, const void* delta,
+                                 const void* seeds, void* dq, KV dk, KV dv,
+                                 int B, int H, int Q, int N, int D,
+                                 int group_rows, unsigned thresh,
+                                 float keep_scale, int b_offset, int v2,
+                                 int is_bf16, void* stream) {
+  return static_cast<int>(bwd_all(
+      q, k, v, dout, static_cast<const float*>(lse),
+      static_cast<const float*>(delta),
+      make_dropout(seeds, group_rows, thresh, keep_scale, b_offset, v2), dq,
+      dk, dv, B, H, Q, N, D, is_bf16, static_cast<cudaStream_t>(stream)));
+}
+
+// The fused (B, N, H*2D) buffer kv (and dkv) contiguous: the three entries
+// above on its K and V views.
 extern "C" int parq_flash_fwd_kv_fused(const void* q, const void* kv, void* o,
                                        void* scratch, int splits, int B,
                                        int H, int Q, int N, int D,
                                        int is_bf16, void* stream) {
-  const Dropout none{nullptr, 1, 0u, 1.f};
-  return static_cast<int>(fwd(q, kv, o, nullptr, scratch, splits, none, B, H,
-                              Q, N, D, is_bf16, stream));
+  const int eb = is_bf16 ? 2 : 4;
+  return parq_flash_fwd_kv(q, fused_k(kv, H, N, D), fused_v(kv, H, N, D, eb),
+                           o, scratch, splits, B, H, Q, N, D, is_bf16,
+                           stream);
 }
 
-// The train form of B2: as parq_flash_fwd_kv_fused, and also lse (B, H, Q)
-// f32 in natural-log units. seeds: (G,) int32 on the device with
-// group_rows = Q / G; thresh = min(floor(rate * 2^32), 2^32 - 1) (0: no
-// dropout) and keep_scale = 1 / (1 - rate), both computed by the caller
-// from the double rate so the threshold matches the JAX package's exactly.
 extern "C" int parq_flash_fwd_kv_fused_lse(
     const void* q, const void* kv, void* o, void* lse, const void* seeds,
     void* scratch, int splits, int B, int H, int Q, int N, int D,
-    int group_rows, unsigned thresh, float keep_scale, int is_bf16,
-    void* stream) {
-  const Dropout drop{static_cast<const int*>(seeds), group_rows, thresh,
-                     keep_scale};
-  return static_cast<int>(fwd(q, kv, o, static_cast<float*>(lse), scratch,
-                              splits, drop, B, H, Q, N, D, is_bf16, stream));
+    int group_rows, unsigned thresh, float keep_scale, int b_offset, int v2,
+    int is_bf16, void* stream) {
+  const int eb = is_bf16 ? 2 : 4;
+  return parq_flash_fwd_kv_lse(
+      q, fused_k(kv, H, N, D), fused_v(kv, H, N, D, eb), o, lse, seeds,
+      scratch, splits, B, H, Q, N, D, group_rows, thresh, keep_scale,
+      b_offset, v2, is_bf16, stream);
 }
 
-// B3. q, dout, dq (B, H, Q, D) and kv, dkv (B, N, H*2D) contiguous, all
-// bf16 (is_bf16=1) or all f32; lse and delta (B, H, Q) f32; seeds, thresh
-// and keep_scale as for parq_flash_fwd_kv_fused_lse. dkv is written whole
-// (every row, K and V lanes of every head), summed over all Q rows.
 extern "C" int parq_flash_bwd_kv_fused(
     const void* q, const void* kv, const void* dout, const void* lse,
     const void* delta, const void* seeds, void* dq, void* dkv, int B, int H,
     int Q, int N, int D, int group_rows, unsigned thresh, float keep_scale,
-    int is_bf16, void* stream) {
-  const Dropout drop{static_cast<const int*>(seeds), group_rows, thresh,
-                     keep_scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  return static_cast<int>(
-      bwd_all(q, kv, dout, l, dl, drop, dq, dkv, B, H, Q, N, D, is_bf16, s));
+    int b_offset, int v2, int is_bf16, void* stream) {
+  const int eb = is_bf16 ? 2 : 4;
+  return parq_flash_bwd_kv(
+      q, fused_k(kv, H, N, D), fused_v(kv, H, N, D, eb), dout, lse, delta,
+      seeds, dq, fused_k(dkv, H, N, D), fused_v(dkv, H, N, D, eb), B, H, Q,
+      N, D, group_rows, thresh, keep_scale, b_offset, v2, is_bf16, stream);
 }
 
 // hopper.cuh's building blocks on one tile (see parq::sm90::wgmma_selftest):

@@ -1,8 +1,11 @@
-// Kernel B3 for Hopper: the flash cross-attention backward over the fused
-// K/V buffer, bf16, D = 256.
+// Kernel B3 for Hopper: the flash cross-attention backward, bf16, D = 256,
+// on K and V in any of the JAX package's layouts: K and V are read through
+// tensor maps of their own and dK and dV written through their own views
+// (flash_common.cuh: KV), so the fused form's dK|dV land in one dKV buffer
+// and the split forms' in two.
 //
 // Replaces parq_tpu/kernels/cross_attention_pallas.py:_bwd_call (:547), body
-// _bwd_kernel (:252), fused-KV form; cross_attention.cu's B3 comment states
+// _bwd_kernel (:252), every KV form; cross_attention.cu's B3 comment states
 // what it computes (p from the saved lse, w = keep p / (1 - rate),
 // ds = w dw - p delta, ds and w rounded to bf16 before the last products).
 //
@@ -41,6 +44,8 @@
 
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -85,7 +90,8 @@ __device__ __forceinline__ void product_rs(float (&d)[kD / 2],
   fence_regs(d);
 }
 
-// seed hash and group-local row of q rows `row` and `row + 1` (row even)
+// seed hash and group-local row of q rows `row` and `row + 1` (row even);
+// bh is the hash's global (b*H + h)
 struct RowPair {
   uint32_t h0[2], local[2];
 };
@@ -128,10 +134,12 @@ static_assert(kSmemBytes <= 232448, "dkv pass: shared memory");
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_do,
-                          const __grid_constant__ CUtensorMap map_kv,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          TmaCoord at_k, TmaCoord at_v,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta, Dropout drop,
-                          bf16* __restrict__ dkv_out, int H, int Q, int N,
+                          KV dk, KV dv, int H, int Q, int N,
                           float sm_scale) {
   using namespace dkv_pass;
   extern __shared__ uint8_t smem_raw[];
@@ -146,7 +154,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* empty = bars + 1 + kStages;
 
   const int n0 = blockIdx.x * kBN, h = blockIdx.y, b = blockIdx.z;
-  const int bh = b * H + h;
+  const int bh = b * H + h, dbh = drop_bh(drop, b, H, h);
   const int nsteps = (Q + kBM - 1) / kBM;
   const int wg = threadIdx.x / kWarpgroup;
 
@@ -163,10 +171,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   if (wg == kConsumers) {  // ---------------------------------- producer
     reg_dealloc<kProducerRegs>();
     if (threadIdx.x == kConsumers * kWarpgroup) {
-      const int c0 = h * 2 * kD;
       mbar_arrive_expect_tx(kv_bar, 2 * kTile64);
-      tma_load_tile<kBoxes>(sK, kBox64, &map_kv, kv_bar, c0, n0, b);
-      tma_load_tile<kBoxes>(sV, kBox64, &map_kv, kv_bar, c0 + kD, n0, b);
+      tma_load_tile<kBoxes>(sK, kBox64, &map_k, kv_bar, h * at_k.hc, n0,
+                            b * at_k.zb + h * at_k.zh);
+      tma_load_tile<kBoxes>(sV, kBox64, &map_v, kv_bar, h * at_v.hc, n0,
+                            b * at_v.zb + h * at_v.zh);
       int s = 0;
       uint32_t phase = 1;
       for (int it = 0; it < nsteps; ++it) {
@@ -226,17 +235,22 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       // while the tensor cores work (bit 4 j + e for c[4 j + e])
       uint32_t keep = 0xffffffffu;
       if (wg == 0 && drop.thresh) {
-        keep = 0u;
+        auto draw = [&](auto v2) {
+          uint32_t bits = 0u;
 #pragma unroll
-        for (int j = 0; j < kRegs / 4; ++j) {
-          const RowPair rp = row_pair(drop, bh, r0 + 8 * j + 2 * tig, Q);
+          for (int j = 0; j < kRegs / 4; ++j) {
+            const RowPair rp = row_pair(drop, dbh, r0 + 8 * j + 2 * tig, Q);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool k = keep_bit(rp.h0[e & 1], rp.local[e & 1],
-                                    tok0 + 8 * (e >> 1), drop.thresh);
-            keep |= static_cast<uint32_t>(k) << (4 * j + e);
+            for (int e = 0; e < 4; ++e) {
+              const bool k = keep_bit<decltype(v2)::value>(
+                  rp.h0[e & 1], rp.local[e & 1], tok0 + 8 * (e >> 1),
+                  drop.thresh);
+              bits |= static_cast<uint32_t>(k) << (4 * j + e);
+            }
           }
-        }
+          return bits;
+        };
+        keep = drop.v2 ? draw(std::true_type{}) : draw(std::false_type{});
       }
       wgmma_wait<0>();
       fence_regs(c);
@@ -287,9 +301,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       if (++pb == kPBufs) pb = 0;
     }
 
-    const long long kv_row = (long long)H * 2 * kD;
-    bf16* out = dkv_out + (long long)b * N * kv_row + (long long)h * 2 * kD +
-                (wg == 0 ? kD : 0);
+    const KV& d_out = wg == 0 ? dv : dk;
+    bf16* out = kv_at<bf16>(d_out, b, h);
+    const long long out_row = d_out.row;
     const float scale = wg == 0 ? 1.f : sm_scale;
 #pragma unroll
     for (int n = 0; n < kD / 8; ++n) {
@@ -298,7 +312,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int hi = 0; hi < 2; ++hi) {
         const int tok = tok0 + hi * 8;
         if (tok < N)
-          *reinterpret_cast<uint32_t*>(out + (long long)tok * kv_row + col) =
+          *reinterpret_cast<uint32_t*>(out + tok * out_row + col) =
               pack_bf16x2(acc[4 * n + 2 * hi] * scale,
                           acc[4 * n + 2 * hi + 1] * scale);
       }
@@ -321,7 +335,9 @@ constexpr int kSmemBytes = kBarOffset + 64 + 1024;
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_do,
-                         const __grid_constant__ CUtensorMap map_kv,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         TmaCoord at_k, TmaCoord at_v,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, Dropout drop,
                          bf16* __restrict__ dq_out, int H, int Q, int N,
@@ -365,9 +381,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int j = 0; j < 2 * nblocks; ++j) {  // even: V, odd: K
         mbar_wait(empty + slot, phase);
         mbar_arrive_expect_tx(full + slot, kTile64);
-        tma_load_tile<kBoxes>(sKV + slot * kTile64, kBox64, &map_kv,
-                              full + slot, h * 2 * kD + (~j & 1) * kD,
-                              (j >> 1) * kBN, b);
+        const bool is_k = j & 1;
+        const TmaCoord& at = is_k ? at_k : at_v;
+        tma_load_tile<kBoxes>(sKV + slot * kTile64, kBox64,
+                              is_k ? &map_k : &map_v, full + slot,
+                              h * at.hc, (j >> 1) * kBN,
+                              b * at.zb + h * at.zh);
         if (++slot == kSlots) {
           slot = 0;
           phase ^= 1;
@@ -389,7 +408,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       rl[hi] = ok ? lse[(long long)bh * Q + row] * kLog2e : 1e30f;
       rd[hi] = ok ? delta[(long long)bh * Q + row] : 0.f;
       if (drop.thresh && ok) {
-        h0[hi] = row_h0(drop, bh, row);
+        h0[hi] = row_h0(drop, drop_bh(drop, b, H, h), row);
         lrow[hi] = row % drop.group_rows;
       }
     }
@@ -432,14 +451,18 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       const int m0 = blk * kBN;
       uint32_t keep = 0xffffffffu;
       if (drop.thresh) {
-        keep = 0u;
+        auto draw = [&](auto v2) {
+          uint32_t bits = 0u;
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const uint32_t col = m0 + (i / 4) * 8 + tig * 2 + (i & 1);
-          const bool k = keep_bit(h0[(i >> 1) & 1], lrow[(i >> 1) & 1], col,
-                                  drop.thresh);
-          keep |= static_cast<uint32_t>(k) << i;
-        }
+          for (int i = 0; i < 32; ++i) {
+            const uint32_t col = m0 + (i / 4) * 8 + tig * 2 + (i & 1);
+            const bool k = keep_bit<decltype(v2)::value>(
+                h0[(i >> 1) & 1], lrow[(i >> 1) & 1], col, drop.thresh);
+            bits |= static_cast<uint32_t>(k) << i;
+          }
+          return bits;
+        };
+        keep = drop.v2 ? draw(std::true_type{}) : draw(std::false_type{});
       }
       wgmma_wait<0>();
       fence_regs(s);
@@ -483,14 +506,14 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
 }  // namespace
 
-cudaError_t flash_bwd(const void* q, const void* kv, const void* dout,
-                      const float* lse, const float* delta, Dropout drop,
-                      void* dq, void* dkv, int B, int H, int Q, int N,
-                      cudaStream_t stream) {
+cudaError_t flash_bwd(const void* q, const KV& k, const KV& v,
+                      const void* dout, const float* lse, const float* delta,
+                      Dropout drop, void* dq, const KV& dk, const KV& dv,
+                      int B, int H, int Q, int N, cudaStream_t stream) {
   const float sm_scale = 1.f / sqrtf(static_cast<float>(kD));
   const uint64_t bh = (uint64_t)B * H, q_stride = (uint64_t)Q * kD;
-  const uint64_t kv_row = (uint64_t)H * 2 * kD;
-  CUtensorMap q64, do64, q128, do128, map_kv;
+  CUtensorMap q64, do64, q128, do128, map_k, map_v;
+  TmaCoord at_k, at_v;
   cudaError_t err = make_map(&q64, q, kD, Q, bh, kD, q_stride, dkv_pass::kBM);
   if (err != cudaSuccess) return err;
   err = make_map(&do64, dout, kD, Q, bh, kD, q_stride, dkv_pass::kBM);
@@ -499,7 +522,9 @@ cudaError_t flash_bwd(const void* q, const void* kv, const void* dout,
   if (err != cudaSuccess) return err;
   err = make_map(&do128, dout, kD, Q, bh, kD, q_stride, dq_pass::kBM);
   if (err != cudaSuccess) return err;
-  err = make_map(&map_kv, kv, kv_row, N, B, kv_row, (uint64_t)N * kv_row, 64);
+  err = make_kv_map(&map_k, &at_k, k, B, H, N, 64);
+  if (err != cudaSuccess) return err;
+  err = make_kv_map(&map_v, &at_v, v, B, H, N, 64);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dkv_sm90_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -511,14 +536,15 @@ cudaError_t flash_bwd(const void* q, const void* kv, const void* dout,
   if (err != cudaSuccess) return err;
   flash_bwd_dkv_sm90_kernel
       <<<dim3((N + dkv_pass::kBN - 1) / dkv_pass::kBN, H, B), kThreads,
-         dkv_pass::kSmemBytes, stream>>>(q64, do64, map_kv, lse, delta, drop,
-                                         static_cast<bf16*>(dkv), H, Q, N,
+         dkv_pass::kSmemBytes, stream>>>(q64, do64, map_k, map_v, at_k, at_v,
+                                         lse, delta, drop, dk, dv, H, Q, N,
                                          sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dq_sm90_kernel
       <<<dim3((Q + dq_pass::kBM - 1) / dq_pass::kBM, H, B), kThreads,
-         dq_pass::kSmemBytes, stream>>>(q128, do128, map_kv, lse, delta, drop,
+         dq_pass::kSmemBytes, stream>>>(q128, do128, map_k, map_v, at_k,
+                                        at_v, lse, delta, drop,
                                         static_cast<bf16*>(dq), H, Q, N,
                                         sm_scale);
   return cudaGetLastError();

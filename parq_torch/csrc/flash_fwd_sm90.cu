@@ -1,5 +1,8 @@
-// Kernel B2 for Hopper: the flash cross-attention forward over the fused
-// K/V buffer, bf16, D = 256, eval and train forms.
+// Kernel B2 for Hopper: the flash cross-attention forward, bf16, D = 256,
+// eval and train forms, on K and V in any of the JAX package's layouts
+// (the fused (B, N, H*2D) buffer, the natural (B, N, H*D) pair, the legacy
+// (B, H, N, D) pair): each of K and V comes through a tensor map of its own
+// (flash_common.cuh: KV, kv_map), so one kernel body serves them all.
 //
 // Replaces parq_tpu/kernels/cross_attention_pallas.py:_fwd_call (:457), body
 // _fwd_kernel (:120); cross_attention.cu's head comment states what it
@@ -17,9 +20,10 @@
 //     rounded to bf16, is the A fragment) and V read MN-major from the very
 //     tile the TMA wrote: no ldmatrix, no second copy of V.
 //   - TMA: one producer thread keeps a ring of 2 stages (K and V of 64
-//     tokens, 64 KB a stage) in flight; the K/V buffer is a 3-D tensor map
-//     (B, N, H*2D), so the ragged last block reads zeros past N and never
-//     the next sample's rows. Scores past N are still masked.
+//     tokens, 64 KB a stage) in flight; K and V are 3-D tensor maps whose
+//     row dimension ends at N, so the ragged last block reads zeros past N
+//     (and past n_valid in a padded legacy buffer) and never the next
+//     sample's rows. Scores past N are still masked.
 //   - One CTA per (b, h, 128 q rows): two consumer warpgroups of 64 rows
 //     each (O: 128 f32 registers a thread) share each K/V stage, so one
 //     runs its softmax while the other holds the tensor cores. The producer
@@ -39,6 +43,8 @@
 
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -66,7 +72,9 @@ constexpr int kSmemBytes = kBarOffset + 64 + 1024;  // + barriers + alignment
 template <bool kTrain>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
-                      const __grid_constant__ CUtensorMap map_kv,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      TmaCoord at_k, TmaCoord at_v,
                       bf16* __restrict__ o, float* __restrict__ lse,
                       float* __restrict__ part_o,
                       float* __restrict__ part_lse, Dropout drop, int H,
@@ -110,10 +118,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(full + s, kStageBytes);
         uint8_t* dst = sKV + s * kStageBytes;
-        const int n0 = (blk0 + it) * kBN, c0 = h * 2 * kD;
-        tma_load_tile<kBoxes>(dst, kKVBox, &map_kv, full + s, c0, n0, b);
-        tma_load_tile<kBoxes>(dst + kTileBytes, kKVBox, &map_kv, full + s,
-                              c0 + kD, n0, b);
+        const int n0 = (blk0 + it) * kBN;
+        tma_load_tile<kBoxes>(dst, kKVBox, &map_k, full + s, h * at_k.hc,
+                              n0, b * at_k.zb + h * at_k.zh);
+        tma_load_tile<kBoxes>(dst + kTileBytes, kKVBox, &map_v, full + s,
+                              h * at_v.hc, n0, b * at_v.zb + h * at_v.zh);
       }
     }
     role_exit();
@@ -125,8 +134,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     uint32_t h00 = 0, h01 = 0, lr0 = 0, lr1 = 0;  // dropout: h0, local rows
     if (kTrain && drop.thresh) {
       const int r0 = min(row0, Q - 1), r1 = min(row1, Q - 1);
-      h00 = row_h0(drop, bh, r0);
-      h01 = row_h0(drop, bh, r1);
+      const int dbh = drop_bh(drop, b, H, h);
+      h00 = row_h0(drop, dbh, r0);
+      h01 = row_h0(drop, dbh, r1);
       lr0 = r0 % drop.group_rows;
       lr1 = r1 % drop.group_rows;
     }
@@ -161,14 +171,21 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       const int n0 = (blk0 + it) * kBN;
       uint32_t keep = 0xffffffffu;
       if (kTrain && drop.thresh) {
-        keep = 0u;
+        auto draw = [&](auto v2) {
+          uint32_t bits = 0u;
 #pragma unroll
-        for (int i = 0; i < kBN / 2; ++i) {
-          const uint32_t col = n0 + (i / 4) * 8 + tig * 2 + (i & 1);
-          const bool k = (i & 2) ? keep_bit(h01, lr1, col, drop.thresh)
-                                 : keep_bit(h00, lr0, col, drop.thresh);
-          keep |= static_cast<uint32_t>(k) << i;
-        }
+          for (int i = 0; i < kBN / 2; ++i) {
+            const uint32_t col = n0 + (i / 4) * 8 + tig * 2 + (i & 1);
+            const bool k =
+                (i & 2) ? keep_bit<decltype(v2)::value>(h01, lr1, col,
+                                                        drop.thresh)
+                        : keep_bit<decltype(v2)::value>(h00, lr0, col,
+                                                        drop.thresh);
+            bits |= static_cast<uint32_t>(k) << i;
+          }
+          return bits;
+        };
+        keep = drop.v2 ? draw(std::true_type{}) : draw(std::false_type{});
       }
       wgmma_wait<0>();
       fence_regs(sc);
@@ -326,10 +343,11 @@ flash_combine_kernel(const float* __restrict__ part_o,
 }
 
 template <bool kTrain>
-cudaError_t launch_fwd(const CUtensorMap& map_q, const CUtensorMap& map_kv,
-                       void* o, float* lse, float* part_o, float* part_lse,
-                       int splits, int bps, Dropout drop, int B, int H, int Q,
-                       int N, cudaStream_t stream) {
+cudaError_t launch_fwd(const CUtensorMap& map_q, const CUtensorMap& map_k,
+                       const CUtensorMap& map_v, TmaCoord at_k,
+                       TmaCoord at_v, void* o, float* lse, float* part_o,
+                       float* part_lse, int splits, int bps, Dropout drop,
+                       int B, int H, int Q, int N, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_sm90_kernel<kTrain>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, fwd::kSmemBytes);
@@ -337,8 +355,8 @@ cudaError_t launch_fwd(const CUtensorMap& map_q, const CUtensorMap& map_kv,
   const float qscale = kLog2e / sqrtf(static_cast<float>(kD));
   const dim3 grid((Q + fwd::kBM - 1) / fwd::kBM * splits, H, B);
   flash_fwd_sm90_kernel<kTrain><<<grid, kThreads, fwd::kSmemBytes, stream>>>(
-      map_q, map_kv, static_cast<bf16*>(o), lse, part_o, part_lse, drop, H, Q,
-      N, splits, bps, qscale);
+      map_q, map_k, map_v, at_k, at_v, static_cast<bf16*>(o), lse, part_o,
+      part_lse, drop, H, Q, N, splits, bps, qscale);
   return cudaGetLastError();
 }
 
@@ -406,8 +424,17 @@ wgmma_selftest_kernel(const __grid_constant__ CUtensorMap map_a,
 
 }  // namespace
 
-cudaError_t flash_fwd(const void* q, const void* kv, void* o, float* lse,
-                      float* part_o, float* part_lse, int splits,
+cudaError_t make_kv_map(void* map, TmaCoord* at, const KV& t, int B, int H,
+                        int N, uint32_t box_rows) {
+  KVMap m;
+  if (!kv_map(t, B, H, N, kD, &m)) return cudaErrorInvalidValue;
+  *at = m.at;
+  return make_map(static_cast<CUtensorMap*>(map), t.ptr, m.cols, m.rows, m.z,
+                  m.row_stride, m.z_stride, box_rows);
+}
+
+cudaError_t flash_fwd(const void* q, const KV& k, const KV& v, void* o,
+                      float* lse, float* part_o, float* part_lse, int splits,
                       Dropout drop, int B, int H, int Q, int N,
                       cudaStream_t stream) {
   const int nblocks = (N + fwd::kBN - 1) / fwd::kBN;
@@ -416,19 +443,20 @@ cudaError_t flash_fwd(const void* q, const void* kv, void* o, float* lse,
   if ((splits - 1) * bps >= nblocks) return cudaErrorInvalidValue;
   if (splits > 1 && (part_o == nullptr || part_lse == nullptr))
     return cudaErrorInvalidValue;
-  CUtensorMap map_q, map_kv;
+  CUtensorMap map_q, map_k, map_v;
+  TmaCoord at_k, at_v;
   cudaError_t err = make_map(&map_q, q, kD, Q, (uint64_t)B * H, kD,
                              (uint64_t)Q * kD, fwd::kBM);
   if (err != cudaSuccess) return err;
-  const uint64_t kv_row = (uint64_t)H * 2 * kD;
-  err = make_map(&map_kv, kv, kv_row, N, B, kv_row, (uint64_t)N * kv_row,
-                 fwd::kBN);
+  err = make_kv_map(&map_k, &at_k, k, B, H, N, fwd::kBN);
+  if (err != cudaSuccess) return err;
+  err = make_kv_map(&map_v, &at_v, v, B, H, N, fwd::kBN);
   if (err != cudaSuccess) return err;
   err = lse == nullptr
-      ? launch_fwd<false>(map_q, map_kv, o, lse, part_o, part_lse, splits,
-                          bps, drop, B, H, Q, N, stream)
-      : launch_fwd<true>(map_q, map_kv, o, lse, part_o, part_lse, splits,
-                         bps, drop, B, H, Q, N, stream);
+      ? launch_fwd<false>(map_q, map_k, map_v, at_k, at_v, o, lse, part_o,
+                          part_lse, splits, bps, drop, B, H, Q, N, stream)
+      : launch_fwd<true>(map_q, map_k, map_v, at_k, at_v, o, lse, part_o,
+                         part_lse, splits, bps, drop, B, H, Q, N, stream);
   if (err != cudaSuccess || splits == 1) return err;
   const long long rows = (long long)B * H * Q;
   flash_combine_kernel<<<(unsigned)((rows + 3) / 4), 256, 0, stream>>>(

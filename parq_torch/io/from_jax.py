@@ -22,7 +22,8 @@ The dead ``decoder.norm`` of released checkpoints has no counterpart.
 
 `grads_from_flax` maps a params-only tree, such as `jax.grad`'s output,
 the same way: it has no FrozenBN statistics, and it yields the port's
-parameter names only (no buffers).
+parameter names only (no buffers). `decoder_state_dict_from_flax` maps the
+params of parq_tpu's PARQDecoder alone to a `PARQDecoder`'s state_dict.
 """
 from __future__ import annotations
 
@@ -48,6 +49,13 @@ def _get(tree: Mapping, path: str) -> np.ndarray:
 
 def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return _from_flax(variables["params"], variables.get("frozen", {}))
+
+
+def decoder_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """parq_tpu PARQDecoder params → the port PARQDecoder's state_dict."""
+    prefix = "box3d_decoder."
+    sd = _from_flax({"box3d_decoder": params}, None)
+    return {k[len(prefix):]: v for k, v in sd.items()}
 
 
 def grads_from_flax(grad_tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -76,7 +84,14 @@ def _from_flax(params: Mapping, frozen) -> Dict[str, torch.Tensor]:
                          ("mean", "running_mean"), ("var", "running_var")):
             sd[f"{key_t}.{dst}"] = _get(frozen, f"{path_f}/{src}")
 
-    # ---- backbone ----------------------------------------------------------
+    if "backbone2d" in params:
+        _backbone_and_ray_pe(params, linear, conv, frozen_bn)
+    _decoder(params, sd, linear)
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
+            for k, v in sd.items()}
+
+
+def _backbone_and_ray_pe(params, linear, conv, frozen_bn):
     body_t = "backbone2d.resnet_fpn.body"
     conv("backbone2d/body/conv1", f"{body_t}.conv1")
     frozen_bn("backbone2d/body/bn1", f"{body_t}.bn1")
@@ -102,7 +117,9 @@ def _from_flax(params: Mapping, frozen) -> Dict[str, torch.Tensor]:
     linear("add_ray_pe/encoder/Dense_0", "add_ray_pe.encoder.0")
     linear("add_ray_pe/encoder/Dense_1", "add_ray_pe.encoder.2")
 
-    # ---- decoder ------------------------------------------------------------
+
+
+def _decoder(params, sd, linear):
     it = "box3d_decoder/iteration"
     linear(f"{it}/position_encoder/Dense_0", f"{_DEC}.position_encoder.0")
     linear(f"{it}/position_encoder/Dense_1", f"{_DEC}.position_encoder.2")
@@ -157,5 +174,3 @@ def _from_flax(params: Mapping, frozen) -> Dict[str, torch.Tensor]:
 
     sd["box3d_decoder.refpoint.weight"] = _get(params,
                                                "box3d_decoder/refpoint")
-    return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
-            for k, v in sd.items()}

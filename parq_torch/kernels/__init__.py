@@ -5,6 +5,7 @@
 | pixel_align_pallas._pallas_sample   | pixel_align.sample_views (B1)         |
 | cross_attention_pallas._fwd_call    | cross_attention.flash_cross_attention_kv_fused (B2, eval form) and cross_attention.flash_fwd_lse (B2, train form) |
 | cross_attention_pallas._bwd_call    | cross_attention.flash_bwd (B3)        |
+| the same two, K and V as two buffers (kv_fused=False) | cross_attention.flash_fwd_lse_kv and flash_bwd_kv |
 | pixel_align_pallas._pallas_sample_bwd_mem | pixel_align.sample_views_bwd_mem (B4) |
 
 B2 and B3 in bf16 at the release head dim (256) are the Hopper kernels of
@@ -21,13 +22,18 @@ The CLI twins (``parq_torch/cli``) and the config tree
 (``parq_torch/config``) changed no kernel: `Trainer.fit` launches B1,
 B2-train, B3 and B4 every step and `Trainer.validate` B1 and B2.
 
+K and V as two buffers (the natural and legacy layouts, the
+sequence-parallel training path) run the same kernels on other strides,
+through their own wrappers and counts.
+
 Each wrapper counts its launches in a ``launches`` attribute (a split
 forward with its combine kernel is one launch).
 `SERVE_KERNELS` are the ones a forward for serving launches; the training
 step launches all but the eval form of B2.
 """
-from .cross_attention import (flash_bwd, flash_cross_attention_kv_fused,
-                              flash_fwd_lse)
+from .cross_attention import (flash_bwd, flash_bwd_kv,
+                              flash_cross_attention_kv_fused, flash_fwd_lse,
+                              flash_fwd_lse_kv)
 from .pixel_align import (pixel_aligned_features_kernel, sample_views,
                           sample_views_bwd_mem)
 
@@ -37,6 +43,8 @@ KERNELS = {
     "flash_cross_attention_fwd_train": flash_fwd_lse,
     "flash_cross_attention_bwd": flash_bwd,
     "pixel_align_bwd_mem": sample_views_bwd_mem,
+    "flash_cross_attention_fwd_train_split": flash_fwd_lse_kv,
+    "flash_cross_attention_bwd_split": flash_bwd_kv,
 }
 SERVE_KERNELS = ("pixel_align_sample", "flash_cross_attention_fwd")
 
@@ -50,7 +58,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "SERVE_KERNELS", "flash_bwd",
+__all__ = ["KERNELS", "SERVE_KERNELS", "flash_bwd", "flash_bwd_kv",
            "flash_cross_attention_kv_fused", "flash_fwd_lse",
+           "flash_fwd_lse_kv",
            "launch_counts", "pixel_aligned_features_kernel",
            "reset_launch_counts", "sample_views", "sample_views_bwd_mem"]

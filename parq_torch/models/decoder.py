@@ -29,6 +29,25 @@ the step's generator, so group g of phase 2 draws exactly what iteration g
 drew in phase 1 (the contract of `_grouped_keep`, :77-87). The sequential
 training path (``batched_grad=False``) is the fold's yardstick in the tests.
 
+Parallel runs (`set_parallel`):
+- data parallel: a rank holds rows b_offset .. b_offset + B − 1 of a
+  global batch of B·data rows. Every mask is drawn for the global batch
+  and the rank keeps its rows, and the flash kernels hash the global batch
+  index, so the ranks together draw exactly what one process over the
+  global batch draws.
+- sequence parallel (a model group of more than one rank): the memory
+  tokens shard over the group BEFORE the K/V projection
+  (parq_tpu/models/decoder.py:648-656); each rank projects its block of
+  tokens and the attention runs through parallel/seq_parallel.py. Eval
+  keeps the fused K/V buffer (`sp_flash_cross_attention_kv_fused`);
+  training projects K and V separately (``in_proj_weight[D:2D]`` and
+  ``[2D:]``) for the split SP entries, as the JAX package does. Gradients:
+  the token shard's backward hands every rank the full d(memory) (a sum
+  over the group); the sampler's d(memory) is already full on every rank
+  and is not summed; the K/V projection's weight gradients are partial
+  per shard and are summed. Every parameter's gradient is then the same on
+  every rank of the group and equals one process's.
+
 Parameter names follow the reference checkpoint: ``refpoint``,
 ``parq_module.decoder.{position_encoder, layers.0.*}`` and
 ``mlp_heads.{sem_cls,center,size,rotation}_head``.
@@ -51,6 +70,10 @@ from ..kernels.cross_attention import (
 from ..kernels.pixel_align import (pixel_aligned_features_precomputed,
                                    pixel_aligned_features_train)
 from ..ops.posemb import pos2posemb3d
+from ..parallel.seq_parallel import (
+    group_size, shard_tokens, sp_flash_cross_attention,
+    sp_flash_cross_attention_fwd_lse, sp_flash_cross_attention_kv_fused,
+    sp_flash_cross_attention_precomputed, sum_grad)
 from .mlp import MLP2, HeadMLP
 
 # dropout-site salts, shared by the sequential and folded paths so their
@@ -71,25 +94,34 @@ class DropoutDraws:
     """The dropout of one training forward: one seed per (iteration,
     salt), drawn from the step's `generator`. Each draw seeds a fresh
     generator on `device`, so a mask depends only on (iteration, salt,
-    shape) and never on the order of the draws."""
+    shape) and never on the order of the draws. A data-parallel rank holds
+    rows b_offset .. of a `global_batch`: each mask is drawn for the global
+    batch and the rank keeps its rows (the seeds are the same on every
+    rank), so the ranks draw what one process over the global batch
+    draws."""
 
     def __init__(self, rate: float, num_layers: int, device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 b_offset: int = 0, global_batch: Optional[int] = None):
         self.rate = float(rate)
         self.device = torch.device(device)
+        self.b_offset, self.global_batch = b_offset, global_batch
         gdev = generator.device if generator is not None else "cpu"
         self.seeds = torch.randint(0, 2 ** 62, (num_layers, N_SALTS),
                                    generator=generator, device=gdev).tolist()
 
     def keep(self, groups: Sequence[int], salt: int, per_shape) -> torch.Tensor:
-        """Keep masks of `per_shape` for each iteration in `groups`,
-        concatenated along axis 1."""
+        """Keep masks of `per_shape` (leading axis: the rank's rows) for
+        each iteration in `groups`, concatenated along axis 1."""
+        B = per_shape[0]
+        shape = (self.global_batch or B,) + tuple(per_shape[1:])
         masks = []
         for l in groups:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self.seeds[l][salt])
-            masks.append(torch.rand(per_shape, generator=gen,
-                                    device=self.device) < 1.0 - self.rate)
+            masks.append(torch.rand(shape, generator=gen,
+                                    device=self.device)
+                         [self.b_offset:self.b_offset + B] < 1.0 - self.rate)
         return torch.cat(masks, dim=1) if len(masks) > 1 else masks[0]
 
     def flash_seeds(self, groups: Sequence[int]):
@@ -180,14 +212,34 @@ class DecoderLayer(nn.Module):
         return (torch.cat([wk, wv], dim=1).reshape(2 * D, -1),
                 torch.cat([bk, bv], dim=1).reshape(2 * D))
 
-    def forward(self, tgt: torch.Tensor, kv: torch.Tensor,
-                query_pos: torch.Tensor,
+    def kv_projection(self, memory_tokens: torch.Tensor, fused: bool,
+                      sp_group=None):
+        """The memory's K/V: the fused (B, N, H·2D) buffer, or (k, v) as two
+        natural (B, N, H·D) buffers. Under a sequence-parallel group
+        `memory_tokens` is the rank's shard and the weights' gradients are
+        summed over the group."""
+        if fused:
+            w, b = self.fused_kv_projection()
+            return F.linear(memory_tokens, sum_grad(w, sp_group),
+                            sum_grad(b, sp_group)).contiguous()
+        mha = self.multihead_attn
+        D = mha.embed_dim
+        w, b = mha.in_proj_weight, mha.in_proj_bias
+        return tuple(F.linear(memory_tokens, sum_grad(w[s], sp_group),
+                              sum_grad(b[s], sp_group))
+                     for s in (slice(D, 2 * D), slice(2 * D, 3 * D)))
+
+    def forward(self, tgt: torch.Tensor, kv, query_pos: torch.Tensor,
                 drops: Optional[DropoutDraws] = None,
                 groups: Sequence[int] = (0,), aux_out: bool = False,
-                precomputed: Optional[Dict[str, torch.Tensor]] = None):
-        """`drops`: the step's dropout (None: none). `aux_out`: also return
-        {"attn_o", "attn_lse"} for a later folded call; `precomputed`: that
-        dict, folded — the attention forward is skipped and only B3 runs."""
+                precomputed: Optional[Dict[str, torch.Tensor]] = None,
+                sp_group=None):
+        """`kv`: the fused K/V buffer, or (k, v) under sequence-parallel
+        training (`sp_group`, the model group: kv holds the rank's token
+        shard). `drops`: the step's dropout (None: none). `aux_out`: also
+        return {"attn_o", "attn_lse"} for a later folded call;
+        `precomputed`: that dict, folded — the attention forward is skipped
+        and only B3 runs."""
         B, GQ, C = tgt.shape
         G = len(groups)
         Q0 = GQ // G
@@ -216,18 +268,35 @@ class DecoderLayer(nn.Module):
         cq = F.linear(tgt + query_pos, mha.in_proj_weight[:D],
                       mha.in_proj_bias[:D])
         cq = _heads_split(cq, H)                     # (B, H, GQ, hd)
+        sp = group_size(sp_group) > 1
+        kv_t = kv if torch.is_tensor(kv) else kv[0]
         needs_grad = torch.is_grad_enabled() and (cq.requires_grad
-                                                  or kv.requires_grad)
+                                                  or kv_t.requires_grad)
         aux = None
-        if drops is None and precomputed is None and not aux_out \
-                and not needs_grad:                  # eval form of B2
-            attn = flash_cross_attention_kv_fused(
-                cq.to(kv.dtype).contiguous(), kv)
+        kw = dict(dropout_rate=rate,
+                  dropout_seed=(drops.flash_seeds(groups)
+                                if drops is not None else None),
+                  q_tile=Q0 if G > 1 else None,
+                  b_offset=drops.b_offset if drops is not None else 0)
+        if torch.is_tensor(kv) and drops is None and precomputed is None \
+                and not aux_out and not needs_grad:  # eval form of B2
+            q_in = cq.to(kv_t.dtype).contiguous()
+            attn = (sp_flash_cross_attention_kv_fused(q_in, kv,
+                                                      group=sp_group)
+                    if sp else flash_cross_attention_kv_fused(q_in, kv))
+        elif sp:
+            k, v = kv
+            spkw = dict(kw, group=sp_group)
+            if precomputed is not None:
+                attn = sp_flash_cross_attention_precomputed(
+                    cq, k, v, precomputed["attn_o"], precomputed["attn_lse"],
+                    **spkw)
+            elif aux_out:
+                attn, lse = sp_flash_cross_attention_fwd_lse(cq, k, v, **spkw)
+                aux = {"attn_o": attn, "attn_lse": lse}
+            else:
+                attn = sp_flash_cross_attention(cq, k, v, **spkw)
         else:
-            kw = dict(dropout_rate=rate,
-                      dropout_seed=(drops.flash_seeds(groups)
-                                    if drops is not None else None),
-                      q_tile=Q0 if G > 1 else None)
             if precomputed is not None:
                 attn = flash_cross_attention_kv_fused_precomputed(
                     cq, kv, precomputed["attn_o"], precomputed["attn_lse"],
@@ -306,6 +375,14 @@ class PARQDecoder(nn.Module):
         self.register_buffer("mean_size",
                              torch.as_tensor(mean_size, dtype=torch.float32),
                              persistent=False)
+        self.set_parallel()
+
+    def set_parallel(self, sp_group=None, data_index: int = 0,
+                     data: int = 1) -> None:
+        """Sequence parallelism over `sp_group` (a model group; None or one
+        rank: off), and this rank's place (`data_index` of `data`) in a
+        data-parallel batch, for the dropout draws."""
+        self.sp_group, self.data_index, self.data = sp_group, data_index, data
 
     def _iteration(self, ref, memory_hw, kv, camera, T_camera_local,
                    drops=None, groups=(0,), refs_only=False,
@@ -335,7 +412,7 @@ class PARQDecoder(nn.Module):
                 *args)
         out = dec.layers[0](pix.to(pos_feat.dtype), kv, pos_feat, drops,
                             groups, aux_out=refs_only,
-                            precomputed=precomputed)
+                            precomputed=precomputed, sp_group=self.sp_group)
         if refs_only:
             out, attn_aux = out
 
@@ -381,17 +458,23 @@ class PARQDecoder(nn.Module):
         T_camera_local = T_camera_pseudoCam @ (T_world_pseudoCam.inverse()
                                                @ Tl)
 
+        # K/V of the memory (the rank's token shard under SP): the fused
+        # (B, N, H·2D) buffer, or (k, v) (B, N, H·D) where SP needs a
+        # gradient (the SP entries with a backward take separate K and V)
         layer = self.parq_module.decoder.layers[0]
-        w_kv, b_kv = layer.fused_kv_projection()
-        kv = F.linear(memory_hw.reshape(B, T * H * W, C), w_kv, b_kv)
-        kv = kv.contiguous()                         # (B, N, H·2D)
+        tokens = shard_tokens(memory_hw.reshape(B, T * H * W, C),
+                              self.sp_group)
+        fused = group_size(self.sp_group) == 1 or (
+            deterministic and not torch.is_grad_enabled())
+        kv = layer.kv_projection(tokens, fused, self.sp_group)
         inputs = (memory_hw, kv, camera, T_camera_local)
 
         ref = torch.sigmoid(self.refpoint.weight)[None].expand(B, -1, 3)
         drops = None
         if not deterministic and self.dropout_rate > 0.0:
             drops = DropoutDraws(self.dropout_rate, L, memory_hw.device,
-                                 generator)
+                                 generator, b_offset=self.data_index * B,
+                                 global_batch=self.data * B)
         if deterministic or not self.batched_grad or L == 1:
             outs = []
             for l in range(L):

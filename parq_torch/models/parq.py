@@ -2,7 +2,10 @@
 parq_tpu/models/parq.py), returning the per-iteration stacked outputs.
 
 State-dict keys follow the reference checkpoint: ``backbone2d.*``,
-``add_ray_pe.*``, ``box3d_decoder.*``.
+``add_ray_pe.*``, ``box3d_decoder.*``. `from_config` builds it from a
+config tree and carries a (data, model) `Mesh` to the decoder, as the JAX
+package's `PARQModel.from_config` carries `sp_mesh` (parq.py:48-91, 142):
+the memory tokens shard over the mesh's model group under TPU.SEQ_PARALLEL.
 """
 from __future__ import annotations
 
@@ -26,6 +29,23 @@ BATCH_KEYS = ("rgb_img", "camera", "T_camera_pseudoCam",
 
 
 class PARQModel(nn.Module):
+    @classmethod
+    def from_config(cls, cfg, mesh=None) -> "PARQModel":
+        """From a config tree; `mesh` (parallel.mesh.Mesh) sets the
+        decoder's data-parallel place and, under TPU.SEQ_PARALLEL, its
+        sequence-parallel group."""
+        model = cls(ModelConfig.from_cfg(cfg))
+        if mesh is not None:
+            model.set_parallel(mesh, bool(cfg.TPU.SEQ_PARALLEL))
+        return model
+
+    def set_parallel(self, mesh, seq_parallel: bool) -> None:
+        """The decoder's place in `mesh`: its data index (dropout draws for
+        the global batch) and, with `seq_parallel`, the model group."""
+        self.box3d_decoder.set_parallel(
+            mesh.model_group if seq_parallel else None, mesh.data_index,
+            mesh.data)
+
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
         self.cfg = cfg

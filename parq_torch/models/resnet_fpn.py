@@ -6,9 +6,13 @@ BatchNorm, an FPN over C2..C5 with torch-nearest top-down upsampling, then
 every level resized bilinearly (align_corners=False) to level 0 and
 concatenated (C = 4 · fpn_channels); `layer` picks the target level
 (BACKBONE2D.LAYER) and `freeze` stops the gradient at the resized levels
-(BACKBONE2D.FREEZE), as parq_tpu/models/resnet_fpn.py:270-273. A level
-larger than the target is resized with an antialiased (triangle) filter,
-as `jax.image.resize` does when it shrinks. Convolutions run NCHW in
+(BACKBONE2D.FREEZE), as parq_tpu/models/resnet_fpn.py:270-273; its
+parameters then require no gradient, so the optimizer leaves them as they
+are. A level larger than the target (BACKBONE2D.LAYER >= 1) is resized
+with an antialiased (triangle) filter, as `jax.image.resize` does when it
+shrinks; the reference's `F.interpolate` does not antialias, so at LAYER
+>= 1 the port follows the JAX package, not the reference (LAYER 0, the
+release setting, shrinks nothing). Convolutions run NCHW in
 channels_last memory format, so the final (B, T, h, w, C) token layout the
 JAX model emits is a free permute. Module and buffer names follow the
 reference checkpoint (``backbone2d.resnet_fpn.body.*`` / ``.fpn.*``).
@@ -188,6 +192,8 @@ class ResNetFPN(nn.Module):
         super().__init__()
         self.layer, self.freeze = layer, freeze
         self.resnet_fpn = BackboneWithFPN(resnet_name, fpn_channels)
+        if freeze:
+            self.resnet_fpn.requires_grad_(False)
         self.register_buffer("mean", torch.tensor(IMAGENET_MEAN),
                              persistent=False)
         self.register_buffer("std", torch.tensor(IMAGENET_STD),

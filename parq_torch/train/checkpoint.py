@@ -7,15 +7,25 @@ the optimizer's, the step, the loader's `data_state` and the validation
 metrics. ``<dir>/index.json`` lists the kept steps with their metrics, so
 retention and `best_step` read no checkpoint. JAX orbax checkpoints are
 not read.
+
+Several ranks (torch.distributed): every rank calls `save` with the same
+state (the ranks' states are equal), rank 0 alone writes the file and the
+index, and the others keep the same index in memory and wait for it at a
+barrier. Every rank can `restore`.
 """
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 from typing import Dict, Optional
 
 import torch
+
+from ..parallel.multihost import barrier, is_main_process
+
+logger = logging.getLogger(__name__)
 
 # the dead `decoder.norm` of released checkpoints: the reference never
 # applies it (parq_tpu/io/torch_convert.py:244 skips it as well)
@@ -78,13 +88,17 @@ class CheckpointManager:
         if data_state is not None:
             payload["data_state"] = {k: int(v) for k, v in data_state.items()}
         path = self.path(step)
-        torch.save(payload, path + ".tmp")
-        os.replace(path + ".tmp", path)
+        main = is_main_process()
+        if main:
+            torch.save(payload, path + ".tmp")
+            os.replace(path + ".tmp", path)
+            logger.info("checkpoint: wrote step %d to %s", step, path)
         self.index[int(step)] = metrics
-        self._retain()
+        self._retain(write=main)
+        barrier()
         return path
 
-    def _retain(self):
+    def _retain(self, write: bool = True):
         keep = set(self.index)
         if self.save_top_k >= 0:
             keep = set(self._ranked()[:self.save_top_k])
@@ -92,8 +106,10 @@ class CheckpointManager:
                 keep.add(self.latest_step())
         for step in sorted(set(self.index) - keep):
             del self.index[step]
-            if os.path.exists(self.path(step)):
+            if write and os.path.exists(self.path(step)):
                 os.remove(self.path(step))
+        if not write:
+            return
         with open(self._index_path + ".tmp", "w") as f:
             json.dump({str(k): v for k, v in sorted(self.index.items())}, f)
         os.replace(self._index_path + ".tmp", self._index_path)

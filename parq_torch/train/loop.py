@@ -7,6 +7,21 @@ eval.py.
 Scalars go to ``<workdir>/metrics.jsonl``, one JSON object a line with its
 stage and step. Image logging (LOG_IMAGES) needs the vis utilities, which
 are not ported yet: it is logged and skipped.
+
+Several ranks (torch.distributed, under torchrun): the Trainer lays them out
+as a (data, model) grid (parallel/mesh.py), as the JAX Trainer builds its
+mesh (loop.py:92-106): TPU.MESH_MODEL ranks to a model group, the data
+axis TPU.MESH_DATA (-1: the rest) clamped to a divisor of BATCH_SIZE.
+BATCH_SIZE is the global batch, as in the JAX package; each data rank
+takes BATCH_SIZE / data rows from its strided shard of the epoch order, and
+the gradients are averaged over the data group. Under TPU.SEQ_PARALLEL the
+model group shards the memory tokens; otherwise its ranks repeat the same
+work (replicated, as the JAX Trainer with MESH_MODEL > 1 and no SP). Every
+rank draws the same seeds and starts from rank 0's weights; rank 0 alone
+writes metrics and checkpoints. Validation runs on every rank over the
+whole validation set (the JAX Trainer's validation scores the whole batch
+on every device), so every rank reaches the same F1 and the same choice of
+checkpoint.
 """
 from __future__ import annotations
 
@@ -27,6 +42,8 @@ from ..evals import (F1Calculator, finish_parse_pred, parse_pred_device,
 from ..geometry import Obb3D, Pose
 from ..losses import parse_targets
 from ..models import BATCH_KEYS, build_model
+from ..parallel.mesh import make_mesh, replicated
+from ..parallel.multihost import is_main_process, rank_device
 from .checkpoint import CheckpointManager, load_pretrained, restore_state
 from .schedule import lr_schedule_from_cfg
 from .train_step import LossConfig, eval_step, make_optimizer, train_step
@@ -71,6 +88,30 @@ def device_prefetch(iterable, device, depth: int = 1, state_fn=None):
         yield buf.popleft()
 
 
+def make_trainer_mesh(cfg):
+    """The (data, model) grid of the Trainer's ranks: TPU.MESH_MODEL ranks
+    to a model group; the data axis TPU.MESH_DATA (-1: every other rank),
+    clamped to the largest divisor of DATAMODULE.BATCH_SIZE it reaches, as
+    the JAX Trainer clamps it. Raises where the grid would leave ranks
+    idle."""
+    import torch.distributed as dist
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    model = max(int(cfg.TPU.MESH_MODEL), 1)
+    if world % model:
+        raise ValueError(f"TPU.MESH_MODEL={model} does not divide the "
+                         f"{world} ranks")
+    data = int(cfg.TPU.MESH_DATA)
+    data = world // model if data == -1 else min(data, world // model)
+    bs = max(int(cfg.DATAMODULE.BATCH_SIZE), 1)
+    while data > 1 and bs % data:
+        data -= 1
+    if data * model != world:
+        raise ValueError(f"a {data} x {model} (data x model) grid for "
+                         f"BATCH_SIZE {bs} leaves ranks of {world} idle: "
+                         "launch data x model ranks")
+    return make_mesh(data, model)
+
+
 def val_batch_limit(limit_batches, n_batches: int) -> int:
     """Lightning's LIMIT_VAL_BATCHES: a float ≤ 1 is a fraction of the set
     (> 0 runs at least one batch), anything else a count, 0 runs none."""
@@ -90,7 +131,10 @@ class Trainer:
             raise ValueError("DEMO / MODEL.DECODER.FOR_VIS need the vis "
                              "utilities, not ported yet (ROADMAP §A9)")
         self.cfg = cfg
-        self.device = resolve_device(platform_device(cfg))
+        self.device = rank_device(resolve_device(platform_device(cfg)))
+        if self.device.index is not None:   # a rank's own card
+            torch.cuda.set_device(self.device)
+        self.mesh = make_trainer_mesh(cfg)
         self.workdir = workdir or os.path.join(cfg.LOG_PATH, cfg.NAME)
         os.makedirs(self.workdir, exist_ok=True)
         self.model_cfg = ModelConfig.from_cfg(cfg)
@@ -118,6 +162,8 @@ class Trainer:
 
     # -- logging ---------------------------------------------------------
     def log_scalars(self, metrics: Dict, step: int, stage: str):
+        if not is_main_process():
+            return
         row = {"stage": stage, "step": int(step)}
         for k, v in metrics.items():
             try:
@@ -147,8 +193,9 @@ class Trainer:
         warm start), AdamW and the LR schedule."""
         cfg = self.cfg
         self.lr_schedule = lr_schedule_from_cfg(cfg, steps_per_epoch)
-        self.model = build_model(self.model_cfg, seed=int(cfg.SEED),
-                                 device=self.device)
+        self.model = replicated(build_model(self.model_cfg, seed=int(cfg.SEED),
+                                            device=self.device))
+        self.model.set_parallel(self.mesh, bool(cfg.TPU.SEQ_PARALLEL))
         self.optimizer = make_optimizer(self.model, lr=self.lr_schedule(0))
         if cfg.PRETRAINED_PATH:
             logger.info("warm start from %s", cfg.PRETRAINED_PATH)
@@ -230,7 +277,9 @@ class Trainer:
                 metrics = train_step(
                     self.model, self.optimizer, dev_batch, gen,
                     self.loss_cfg, float(cfg.TRAINER.GRADIENT_CLIP_VAL),
-                    accumulate=k, micro_step=self.global_step % k)
+                    accumulate=k, micro_step=self.global_step % k,
+                    data_group=self.mesh.data_group,
+                    model_group=self.mesh.model_group)
                 t0 = self._tick("train_step", t0)
                 self.global_step += 1
                 if prof_steps and self.global_step == 2:
@@ -355,9 +404,10 @@ class Trainer:
                 host = host_finish(item)
                 dt = time.perf_counter() - t0
                 times.append(dt)
-                print(f"{batch['scene_name'][0]}: inference time {dt:.4f}s "
-                      f"(running mean {np.mean(times[1:] or times):.4f}s)",
-                      flush=True)
+                if is_main_process():
+                    print(f"{batch['scene_name'][0]}: inference time "
+                          f"{dt:.4f}s (running mean "
+                          f"{np.mean(times[1:] or times):.4f}s)", flush=True)
                 consume(item, host)
             else:
                 if pending is not None:

@@ -121,20 +121,38 @@ def test_check_config_precision_16_selects_bf16():
     assert cfg.TPU.COMPUTE_DTYPE == "bfloat16"
 
 
-@pytest.mark.parametrize("path, value", [
-    (("TPU", "MESH_MODEL"), 2), (("TPU", "SEQ_PARALLEL"), True),
-    (("TPU", "MESH_DATA"), 4), (("TPU", "REMAT"), True),
-    (("TPU", "DEBUG_NANS"), True), (("TRAINER", "NUM_NODES"), 2),
-    (("MODEL", "DECODER", "TRANSFORMER", "SHARE_WEIGHTS"), False),
-])
-def test_card_support_rejects_levers_not_ported(path, value):
-    cfg = get_cfg()
+def _set(cfg, path, value):
     node = cfg
     for p in path[:-1]:
         node = node[p]
     node[path[-1]] = value
+
+
+@pytest.mark.parametrize("path, value", [
+    (("TPU", "REMAT"), True), (("TPU", "DEBUG_NANS"), True),
+    (("TPU", "PARAM_DTYPE"), "bfloat16"),
+    (("MODEL", "DECODER", "TRANSFORMER", "SHARE_WEIGHTS"), False),
+])
+def test_card_support_rejects_levers_not_ported(path, value):
+    cfg = get_cfg()
+    _set(cfg, path, value)
     with pytest.raises(ValueError, match="not supported by parq_torch"):
         check_card_support(cfg)
+
+
+@pytest.mark.parametrize("settings", [
+    {("TPU", "MESH_MODEL"): 2},
+    {("TPU", "SEQ_PARALLEL"): True, ("TPU", "MESH_MODEL"): 2},
+    {("TPU", "MESH_DATA"): 4}, {("TRAINER", "NUM_NODES"): 2},
+])
+def test_card_support_accepts_parallel_levers(settings):
+    """The (data, model) grid, sequence parallelism and several nodes run
+    on the card (parallel/, under torchrun)."""
+    cfg = get_cfg()
+    for path, value in settings.items():
+        _set(cfg, path, value)
+    check_card_support(cfg)
+    check_config(cfg)
 
 
 def test_card_support_accepts_tpu_levers():
