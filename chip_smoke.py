@@ -27,7 +27,10 @@ Phases, each printed on its own line; any failure exits non-zero:
                it never read, their gradients left zero), the v2 dropout
                hash (split and fused); a fused and a split call on the same
                K/V values agree; a call on rows 4-7 with b_offset 4 equals
-               those rows of the call over all 8, bit for bit;
+               those rows of the call over all 8, bit for bit; then every
+               kernel at the shapes of configs/scaled_recurrence.yaml (B=1,
+               T=6, Q=256, N=28,800) with the same tolerances: B1 (bf16
+               and f32), B2, B2-train, B3 and B4 (bf16);
   4. serve   — an Engine at the release config (ResNet50, 3 x 320x240,
                L=8, Q=256, dim 1024, B=8, bf16) answers 3 /detect requests
                over HTTP; every output is finite, each serving kernel's
@@ -47,7 +50,9 @@ Phases, each printed on its own line; any failure exits non-zero:
                CUDA events after a warm-up step, and a profile of one step;
   7. train-parity — B=1, f32, TF32 off, dropout 0, release widths at L=2:
                the card's gradients (kernels) against the CPU's (plain
-               versions), parameter by parameter, by norm;
+               versions), parameter by parameter, by norm; `unshared`:
+               the same with SHARE_WEIGHTS False (each iteration its own
+               modules);
   8. times   — forward ms at B=8 bf16 (CUDA events over 10 forwards, the
                host's work included) and a profile of one forward; per
                kernel device ms (CUDA-graph replay; the library's dropout
@@ -88,11 +93,35 @@ Phases, each printed on its own line; any failure exits non-zero:
                the fit's best checkpoint, synthetic snippets, bf16: the
                metric lines 0.25_f1, 0.5_f1, 0.7_f1 and mean_latency_s are
                printed; per snippet B1 and B2 8 launches each;
- 13. fit-sp  — the train twin under `torchrun --standalone --nproc_per_node
+ 13. serve-ckpt — an Engine from configs/eval.yaml with the fit's best
+               checkpoint loaded strictly, then with the same weights as a
+               reference-layout state_dict: their detections on a snippet
+               equal those of the eval twin's model, at CONF_THRESH and at
+               0 (1e-4);
+ 14. scaled  — configs/scaled_recurrence.yaml at full width (6 x 320x240,
+               L=16, Q=256, 28,800 tokens, B=1, bf16, dropout 0.1): 3
+               train steps with REMAT on (per step B1 32, B2-train 32, B3
+               16, B4 16: the recompute launches B1 and B2-train again),
+               3 with REMAT off on the same sequential path (16 each) and 3
+               on the fold the config takes without REMAT (B1 16, B2-train
+               16, B3 1, B4 1); step ms (CUDA events) and peak memory of
+               each; an f32 gate (TF32 off, dropout 0) of REMAT on against
+               off, each gradient to the train-parity tolerance; one eval
+               forward (B1 16, B2 16); the train twin on the config (2
+               synthetic snippets, 2 steps, 2 validations); then the
+               kernels' record at these shapes;
+ 15. export  — the release eval forward through parq_torch.export on the
+               card, saved and loaded: f32 at B=1 against the live model to
+               1e-5 (TF32 off), bf16 at B=8 to 1e-2; the bf16 artifact
+               behind the server answers 3 /detect requests, B1 and B2
+               rising by exactly 8 a request (the program runs the
+               kernels through their custom ops), nothing else launching;
+ 16. fit-sp  — the train twin under `torchrun --standalone --nproc_per_node
                2` (gloo), TPU.SEQ_PARALLEL True, MESH_MODEL 2, B=8: 2 steps,
                1 validation, the checkpoint written once (by rank 0), the
-               final validation; every rank must exit 0. The fit's, eval's
-               and fit-sp's files under build/ are deleted at the end.
+               final validation; every rank must exit 0. The files of the
+               CLI, scaled, export and fit-sp phases under build/ are
+               deleted at the end.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the parq_torch
 package beside this file, it exits non-zero and prints no result.
@@ -176,7 +205,8 @@ def release_sampler_inputs(cfg, B, dtype, gen):
     from parq_torch.geometry import Camera, Pose
     from parq_torch.kernels.pixel_align import project_uvs
     from parq_torch.models.decoder import denormalize_points
-    batch = make_batch(list(range(B)), image_size=cfg.image_size)
+    batch = make_batch(list(range(B)), image_size=cfg.image_size,
+                       num_views=cfg.num_views)
     dev = "cuda"
     t = {k: torch.as_tensor(batch[k], device=dev) for k in
          ("camera", "T_camera_pseudoCam", "T_world_pseudoCam",
@@ -709,19 +739,15 @@ def _post(url, arrays):
         return json.loads(r.read())
 
 
-def phase_serve(serve_cfg, batch_size, requests=3):
+def serve_requests(engine, requests, what="serve"):
+    """`requests` /detect requests of the served batch over HTTP: (answers,
+    launch counts set to 0 just before the first and read just after the
+    last). Every answer has the batch's samples and finite detections."""
     from parq_torch.data.synthetic import make_batch
-    from parq_torch.kernels import (SERVE_KERNELS, launch_counts,
-                                    reset_launch_counts)
+    from parq_torch.kernels import launch_counts, reset_launch_counts
     from parq_torch.models import BATCH_KEYS
-    from parq_torch.serve import Engine, build_server
-    cfg = serve_cfg.model
-    t0 = time.perf_counter()
-    engine = Engine(serve_cfg, batch_size=batch_size, device="cuda", seed=0)
-    phase("serve", f"engine ready in {time.perf_counter() - t0:.1f} s: "
-          f"{cfg.resnet_name} {cfg.num_views}x{cfg.image_size} "
-          f"L={cfg.dec_layers} Q={cfg.num_queries} dim={cfg.dec_dim} "
-          f"B={batch_size} {cfg.compute_dtype}")
+    from parq_torch.serve import build_server
+    cfg, batch_size = engine.cfg.model, engine.batch_size
     server = build_server(engine)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -732,35 +758,57 @@ def phase_serve(serve_cfg, batch_size, requests=3):
             check(json.loads(r.read()) == {"status": "ok"}, "/healthz")
         bodies = [{k: v for k, v in make_batch(
             list(range(i * batch_size, (i + 1) * batch_size)),
-            image_size=cfg.image_size).items() if k in BATCH_KEYS}
-            for i in range(requests)]
-        mem_dtypes, hook = watch_memory_dtype(engine.model)
+            image_size=cfg.image_size, num_views=cfg.num_views).items()
+            if k in BATCH_KEYS} for i in range(requests)]
         reset_launch_counts()
         answers = [_post(url + "/detect", b) for b in bodies]
         counts = launch_counts()
-        hook.remove()
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
-    check(not thread.is_alive(), "server thread did not stop")
-    for name, n in counts.items():
-        want = cfg.dec_layers * requests if name in SERVE_KERNELS else 0
-        check(n == want, f"{name}: {n} launches in {requests} requests, "
-              f"want {want}")
-    want_dtype = getattr(torch, cfg.compute_dtype)
-    check(mem_dtypes == [want_dtype] * requests, f"serve: the decoder's "
-          f"memory came as {mem_dtypes}, want {want_dtype} per request")
+    check(not thread.is_alive(), f"{what}: server thread did not stop")
     n_dets = 0
     for ans in answers:
-        check(len(ans["detections"]) == batch_size, "response batch size")
+        check(len(ans["detections"]) == batch_size,
+              f"{what}: response batch size")
         for dets in ans["detections"]:
             for d in dets:
                 n_dets += 1
                 vals = [d["score"], *d["center"], *d["size"],
                         *np.ravel(d["corners_world"])]
                 check(all(math.isfinite(v) for v in vals),
-                      "non-finite detection")
+                      f"{what}: non-finite detection")
+    return answers, counts, n_dets
+
+
+def check_serve_counts(counts, cfg, requests, what):
+    """Each serving kernel launched L times a request, nothing else."""
+    from parq_torch.kernels import SERVE_KERNELS
+    for name, n in counts.items():
+        want = cfg.dec_layers * requests if name in SERVE_KERNELS else 0
+        check(n == want, f"{what}: {name}: {n} launches in {requests} "
+              f"requests, want {want}")
+
+
+def phase_serve(serve_cfg, batch_size, requests=3):
+    from parq_torch.serve import Engine
+    cfg = serve_cfg.model
+    t0 = time.perf_counter()
+    engine = Engine(serve_cfg, batch_size=batch_size, device="cuda", seed=0)
+    phase("serve", f"engine ready in {time.perf_counter() - t0:.1f} s: "
+          f"{cfg.resnet_name} {cfg.num_views}x{cfg.image_size} "
+          f"L={cfg.dec_layers} Q={cfg.num_queries} dim={cfg.dec_dim} "
+          f"B={batch_size} {cfg.compute_dtype}")
+    mem_dtypes, hook = watch_memory_dtype(engine.model)
+    try:
+        _, counts, n_dets = serve_requests(engine, requests)
+    finally:
+        hook.remove()
+    check_serve_counts(counts, cfg, requests, "serve")
+    want_dtype = getattr(torch, cfg.compute_dtype)
+    check(mem_dtypes == [want_dtype] * requests, f"serve: the decoder's "
+          f"memory came as {mem_dtypes}, want {want_dtype} per request")
     out = engine.forward(engine.example)
     L, B, Q = cfg.dec_layers, batch_size, cfg.num_queries
     check(out["pred_logits"].shape == (L, B, Q, cfg.num_semcls + 1),
@@ -892,11 +940,12 @@ def phase_train(cfg, steps=5):
     return counts, step_ms
 
 
-def phase_train_parity(cfg):
+def phase_train_parity(cfg, label="train-parity"):
     """Gradients on the card (kernels) against the CPU (plain versions):
     B=1, f32, TF32 off, dropout 0, release widths at L=2 (depth cut so the
     CPU side fits the time limit); the same weights, batch and matcher
-    draws."""
+    draws. `label` names the phase (`unshared`: the same with
+    SHARE_WEIGHTS False in `cfg`)."""
     from parq_torch.data.synthetic import make_batch, to_device
     from parq_torch.models import build_model
     from parq_torch.train.__main__ import TRAIN_KEYS
@@ -924,20 +973,21 @@ def phase_train_parity(cfg):
         torch.backends.cudnn.allow_tf32 = tf32
     for k, v in losses["cpu"].items():
         check(abs(losses["cuda"][k] - v) <= 1e-3 * max(abs(v), 1.0),
-              f"train-parity: {k} {losses['cuda'][k]} vs {v}")
+              f"{label}: {k} {losses['cuda'][k]} vs {v}")
     total = math.sqrt(sum(float(g.norm()) ** 2
                           for g in grads["cpu"].values()))
     worst, worst_name = 0.0, ""
     for n, g in grads["cpu"].items():
         err = float((grads["cuda"][n] - g).norm())
         check(err <= 5e-3 * float(g.norm()) + 1e-6 * total,
-              f"train-parity: {n} gradient off by {err} (norm "
+              f"{label}: {n} gradient off by {err} (norm "
               f"{float(g.norm())})")
         rel = err / max(float(g.norm()), 1e-30)
         if rel > worst:
             worst, worst_name = rel, n
-    phase("train-parity", f"card (kernels) vs CPU (plain), B=1 f32, TF32 "
-          f"off, dropout 0, L=2: loss {losses['cuda']['total_loss']:.6f} vs "
+    phase(label, f"card (kernels) vs CPU (plain), B=1 f32, TF32 off, "
+          f"dropout 0, L=2, shared weights {f32.share_weights}: loss "
+          f"{losses['cuda']['total_loss']:.6f} vs "
           f"{losses['cpu']['total_loss']:.6f}; {len(grads['cpu'])} "
           f"gradients, worst ‖Δ‖/‖g‖ {worst:.2e} ({worst_name}); limit "
           f"5e-3·‖g‖ + 1e-6·‖G‖, ‖G‖ = {total:.4g}")
@@ -1399,8 +1449,612 @@ def phase_eval(ckpt, smi_line):
           f"{os.path.relpath(ckpt, ROOT)}: mean latency {latency_ms:.2f} ms "
           f"per snippet (the first excluded); launches {counts}; 0.5_f1 "
           f"{metrics['0.5_f1']}")
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
     return metrics
+
+
+# ------------------------------------------- the scaled-recurrence config --
+SCALED_DIR = os.path.join(ROOT, "build", "chip_smoke_scaled")
+EXPORT_DIR = os.path.join(ROOT, "build", "chip_smoke_export")
+# per step of the scaled config (L=16), the sequential path: with REMAT the
+# recompute launches B1 and B2-train a second time in the backward
+SCALED_REMAT_KERNELS = dict(NO_KERNELS, pixel_align_sample=32,
+                           flash_cross_attention_fwd_train=32,
+                           flash_cross_attention_bwd=16,
+                           pixel_align_bwd_mem=16)
+SCALED_SEQ_KERNELS = dict(NO_KERNELS, pixel_align_sample=16,
+                         flash_cross_attention_fwd_train=16,
+                         flash_cross_attention_bwd=16,
+                         pixel_align_bwd_mem=16)
+SCALED_FOLD_KERNELS = dict(NO_KERNELS, pixel_align_sample=16,
+                          flash_cross_attention_fwd_train=16,
+                          flash_cross_attention_bwd=1,
+                          pixel_align_bwd_mem=1)
+SCALED_VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=16,
+                         flash_cross_attention_fwd=16)
+
+
+def config_tree(path, *opts):
+    """A config tree from configs/`path` in bf16 on synthetic snippets, the
+    mean-size table by absolute path, plus `opts`."""
+    from parq_torch.config import get_cfg, update_config
+    cfg = get_cfg()
+    update_config(cfg, argparse.Namespace(
+        cfg=os.path.join(ROOT, "configs", path), opts=[
+            "TRAINER.PRECISION", "16", "DATAMODULE.DATA_PATH", "synthetic",
+            "MODEL.DECODER.MEAN_SIZE_PATH",
+            os.path.join(ROOT, "data", "average_scan2cad.txt"), *opts]))
+    return cfg
+
+
+def scaled_model_cfg():
+    """configs/scaled_recurrence.yaml's model: 6 views, L=16, REMAT, bf16."""
+    from parq_torch.config import ModelConfig
+    mcfg = ModelConfig.from_cfg(config_tree("scaled_recurrence.yaml"))
+    check(mcfg.remat and mcfg.share_weights and mcfg.num_views == 6
+          and mcfg.dec_layers == 16 and mcfg.compute_dtype == "bfloat16",
+          f"scaled_recurrence.yaml read as {mcfg}")
+    return mcfg
+
+
+def scaled_inputs(mcfg, gen):
+    """The kernels' inputs at the scaled shapes: B=1, T=6, Q=256,
+    N = 6·80·60 = 28,800 tokens, 4 heads of 256."""
+    Hh, D = mcfg.dec_heads, mcfg.dec_dim // mcfg.dec_heads
+    N = mcfg.num_views * mcfg.feat_size[0] * mcfg.feat_size[1]
+    mem, uvs = release_sampler_inputs(mcfg, 1, torch.bfloat16, gen)
+    q, kv = attention_inputs(1, Hh, mcfg.num_queries, N, D, torch.bfloat16,
+                             gen)
+    g = torch.randn(1, mcfg.num_queries, mem.shape[-1], device="cuda",
+                    generator=gen)
+    return mem, uvs, g, q, kv
+
+
+def scaled_kernels(mcfg):
+    """Each kernel of the scaled path against its plain version at its
+    shapes, with the release checks' tolerances: B1 (bf16 and f32, atol
+    1e-4), B2 and B2-train (bf16, atol 2e-2, lse 1e-4), B3 (2e-2 of the
+    largest element), B4 (1e-2 of it, two launches equal bit for bit).
+    Returns the bf16 max abs errors."""
+    from parq_torch.kernels import (flash_cross_attention_kv_fused,
+                                    flash_fwd_lse, sample_views,
+                                    sample_views_bwd_mem)
+    from parq_torch.kernels.cross_attention import (
+        cross_attention_kv_fused_plain, cross_attention_kv_fused_train_plain)
+    from parq_torch.kernels.pixel_align import (sample_views_bwd_mem_plain,
+                                                sample_views_plain)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mem, uvs, g, q, kv = scaled_inputs(mcfg, gen)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        m = mem.to(dtype)
+        err = (sample_views(m, uvs) - sample_views_plain(m, uvs)
+               ).abs().max().item()
+        check(err <= 1e-4, f"scaled B1 {dtype}: max abs err {err} > 1e-4")
+        errs.setdefault("pixel_align_sample", err)
+        phase("kernels", f"scaled B1 {str(dtype)[6:]} {tuple(m.shape)} "
+              f"Q={uvs.shape[2]}: max abs err {err:.3e} (atol 1e-4)")
+    err = (flash_cross_attention_kv_fused(q, kv).float()
+           - cross_attention_kv_fused_plain(q, kv).float()).abs().max().item()
+    check(err <= 2e-2, f"scaled B2: max abs err {err} > 2e-2")
+    errs["flash_cross_attention_fwd"] = err
+    seeds = seed_vector(1, gen)
+    rate = mcfg.dropout_rate
+    o, lse = flash_fwd_lse(q, kv, seeds, rate)
+    o_ref, lse_ref = cross_attention_kv_fused_train_plain(q, kv, seeds, rate)
+    err_t = (o.float() - o_ref.float()).abs().max().item()
+    err_l = (lse - lse_ref).abs().max().item()
+    check(err_t <= 2e-2 and err_l <= 1e-4, f"scaled B2-train: o {err_t} > "
+          f"2e-2 or lse {err_l} > 1e-4")
+    errs["flash_cross_attention_fwd_train"] = err_t
+    phase("kernels", f"scaled B2 bfloat16 q {tuple(q.shape)} kv "
+          f"{tuple(kv.shape)}: eval max abs err {err:.3e}, train (rate "
+          f"{rate}) {err_t:.3e} (atol 2e-2), lse {err_l:.3e} (atol 1e-4)")
+    errs["flash_cross_attention_bwd"] = check_backward(q, kv, seeds, rate,
+                                                       2e-2, gen)
+    got = sample_views_bwd_mem(uvs, g, mem.shape, mem.dtype)
+    check(torch.equal(got, sample_views_bwd_mem(uvs, g, mem.shape,
+                                                mem.dtype)),
+          "scaled B4: two launches on the same inputs differ")
+    err, rel = _rel_err(got, sample_views_bwd_mem_plain(uvs, g, mem.shape,
+                                                        mem.dtype))
+    check(rel <= 1e-2, f"scaled B4: max abs err {err} is {rel} of its max")
+    errs["pixel_align_bwd_mem"] = err
+    phase("kernels", f"scaled B4 bfloat16 dmem {tuple(mem.shape)} "
+          f"Q={uvs.shape[2]}: max abs err {err:.3e} ({rel:.2e} of its max; "
+          "limit 1e-2); two launches equal bit for bit")
+    torch.cuda.synchronize()
+    return errs
+
+
+def scaled_rows(mcfg, errs, counts):
+    """The kernels' record at the scaled shapes: device ms (CUDA-graph
+    replay; the library's dropout and backward by CUDA events), bound,
+    plain and library ms; launches from the scaled phase's REMAT steps
+    (training kernels) and its eval forward (B2's eval form)."""
+    import torch.nn.functional as F
+    from parq_torch.kernels import (flash_bwd, flash_cross_attention_kv_fused,
+                                    flash_fwd_lse, sample_views,
+                                    sample_views_bwd_mem)
+    from parq_torch.kernels.cross_attention import (
+        _splits_for, cross_attention_kv_fused_bwd_plain,
+        cross_attention_kv_fused_plain, cross_attention_kv_fused_train_plain,
+        split_kv)
+    from parq_torch.kernels.pixel_align import (sample_views_bwd_mem_plain,
+                                                sample_views_plain)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    mem, uvs, g, q, kv = scaled_inputs(mcfg, gen)
+    k, v = (t.contiguous() for t in split_kv(kv, mcfg.dec_heads))
+    rate = mcfg.dropout_rate
+    s1 = seed_vector(1, gen)
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    o, lse = flash_fwd_lse(q, kv, s1, rate)
+    delta = (do.float() * o.float()).sum(-1)
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl)
+    src = "parq_torch/csrc/"
+    rows = [
+        dict(name="pixel_align_sample_scaled", kernel="pixel_align_sample",
+             source=src + "pixel_align.cu",
+             replaces="parq_tpu/kernels/pixel_align_pallas.py:168",
+             ms=device_ms(lambda: sample_views(mem, uvs), 50),
+             plain_ms=device_ms(lambda: sample_views_plain(mem, uvs), 10),
+             bound=(sampler_bound_ms(mem, uvs), "bytes"), library_ms=None),
+        dict(name="flash_cross_attention_fwd_scaled",
+             kernel="flash_cross_attention_fwd",
+             source=src + "flash_fwd_sm90.cu",
+             replaces="parq_tpu/kernels/cross_attention_pallas.py:457",
+             ms=device_ms(lambda: flash_cross_attention_kv_fused(q, kv), 20),
+             plain_ms=device_ms(
+                 lambda: cross_attention_kv_fused_plain(q, kv), 5),
+             bound=attention_bound(q, kv),
+             library_ms=device_ms(
+                 lambda: F.scaled_dot_product_attention(q, k, v), 20)),
+        dict(name="flash_cross_attention_fwd_train_scaled",
+             kernel="flash_cross_attention_fwd_train",
+             source=src + "flash_fwd_sm90.cu",
+             replaces="parq_tpu/kernels/cross_attention_pallas.py:457",
+             ms=device_ms(lambda: flash_fwd_lse(q, kv, s1, rate), 20),
+             plain_ms=device_ms(lambda: cross_attention_kv_fused_train_plain(
+                 q, kv, s1, rate), 3),
+             bound=attention_bound(q, kv, lse=True),
+             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                 q, k, v, dropout_p=rate), 20)),
+        dict(name="flash_cross_attention_bwd_scaled",
+             kernel="flash_cross_attention_bwd",
+             source=src + "flash_bwd_sm90.cu",
+             replaces="parq_tpu/kernels/cross_attention_pallas.py:547",
+             ms=device_ms(lambda: flash_bwd(q, kv, do, lse, delta, s1, rate),
+                          10),
+             plain_ms=device_ms(lambda: cross_attention_kv_fused_bwd_plain(
+                 q, kv, do, lse, delta, s1, rate), 3),
+             bound=attention_bwd_bound(q, kv),
+             library_ms=cuda_ms(lambda: torch.autograd.grad(
+                 ol, (ql, kl, vl), do, retain_graph=True), 10)),
+        dict(name="pixel_align_bwd_mem_scaled", kernel="pixel_align_bwd_mem",
+             source=src + "pixel_align_bwd.cu",
+             replaces="parq_tpu/kernels/pixel_align_pallas.py:280",
+             ms=device_ms(lambda: sample_views_bwd_mem(uvs, g, mem.shape,
+                                                       mem.dtype), 20),
+             plain_ms=device_ms(lambda: sample_views_bwd_mem_plain(
+                 uvs, g, mem.shape, mem.dtype), 3),
+             bound=sampler_bwd_bound(uvs, g, mem.shape, mem.dtype),
+             library_ms=grid_sampler_bwd_ms(mem, uvs, g)),
+    ]
+    phase("times", f"scaled: B2 splits its KV range in "
+          f"{_splits_for(q, kv.shape[1], q.shape[2], None)} at q "
+          f"{tuple(q.shape)}, N={kv.shape[1]}")
+    device_profile(lambda: flash_bwd(q, kv, do, lse, delta, s1, rate),
+                   "scaled B3 launch (its two passes)", top=2)
+    out = []
+    for r in rows:
+        kernel = r.pop("kernel")
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+        r.update(route="cuda", launches=counts[kernel],
+                 max_abs_err=errs[kernel])
+        phase("times", f"{r['name']}: {r['ms']:.4f} ms/launch, "
+              f"{r['launches']} launches in the scaled phase, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']}")
+        out.append(r)
+    return out
+
+
+def scaled_batches(mcfg, seeds, keys):
+    from parq_torch.data.synthetic import make_batch, to_device
+    return [to_device(make_batch([s], image_size=mcfg.image_size,
+                                 num_views=mcfg.num_views), keys, "cuda")
+            for s in seeds]
+
+
+def phase_scaled(smi_line, steps=3):
+    """configs/scaled_recurrence.yaml at full width: train steps with
+    REMAT on, then off (the sequential path, and the fold the config
+    would take without REMAT), launches per step, step ms and peak memory;
+    an f32 gate of REMAT on against off; one eval forward; the train twin
+    on the config. Returns the launch counts of the REMAT steps and the
+    eval forward (B2's eval form)."""
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.models import BATCH_KEYS, build_model
+    from parq_torch.train.__main__ import TRAIN_KEYS
+    from parq_torch.train.train_step import make_optimizer, train_step
+    mcfg = scaled_model_cfg()
+    t0 = time.perf_counter()
+    model = build_model(mcfg, seed=0, device="cuda").train()
+    opt = make_optimizer(model, lr=1e-4)
+    batches = scaled_batches(mcfg, range(steps), TRAIN_KEYS)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dec = model.box3d_decoder
+    train_step(model, opt, batches[0], gen)      # warm-up: AdamW's state
+    torch.cuda.synchronize()
+    phase("scaled", f"model ready in {time.perf_counter() - t0:.1f} s: "
+          f"{mcfg.resnet_name} {mcfg.num_views}x{mcfg.image_size} "
+          f"L={mcfg.dec_layers} Q={mcfg.num_queries} dim={mcfg.dec_dim} "
+          f"B=1 bfloat16, dropout {mcfg.dropout_rate}; a warm-up step")
+    mem_dtypes, hook = watch_memory_dtype(model)
+    remat_counts = dict(NO_KERNELS)
+    for label, remat, folded, want in (
+            ("REMAT on", True, False, SCALED_REMAT_KERNELS),
+            ("REMAT off, sequential", False, False, SCALED_SEQ_KERNELS),
+            ("REMAT off, fold", False, True, SCALED_FOLD_KERNELS)):
+        dec.remat, dec.batched_grad = remat, folded
+        check(dec.folds(False) == folded, f"scaled {label}: fold gate")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for step in range(steps):
+            reset_launch_counts()
+            t = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t[0].record()
+            m = train_step(model, opt, batches[step], gen)
+            t[1].record()
+            torch.cuda.synchronize()
+            ms.append(t[0].elapsed_time(t[1]))
+            counts = launch_counts()
+            check(counts == want, f"scaled {label} step {step}: launches "
+                  f"{counts}, want {want}")
+            if remat:
+                for k, n in counts.items():
+                    remat_counts[k] += n
+            loss = float(m["total_loss"])
+            check(math.isfinite(loss) and math.isfinite(float(
+                m["grad_norm"])), f"scaled {label} step {step}: loss {loss}")
+        peak = torch.cuda.max_memory_allocated()
+        phase("scaled", f"[{smi_line}] {label}: step {sum(ms) / steps:.2f} "
+              f"ms (CUDA events, mean of {steps}: "
+              + ", ".join(f"{x:.2f}" for x in ms)
+              + f"); peak memory {peak / 2 ** 30:.3f} GiB "
+              f"({(peak - base) / 2 ** 30:.3f} GiB over the "
+              f"{base / 2 ** 30:.3f} GiB held between steps); per step "
+              f"launches {want}; last loss {loss:.5f}")
+    hook.remove()
+    for label, remat, folded in (("REMAT on", True, False),
+                                 ("the fold", False, True)):
+        dec.remat, dec.batched_grad = remat, folded
+        device_profile(lambda: train_step(model, opt, batches[0], gen),
+                       f"scaled step ({label})", label_phase="scaled")
+    for label, remat in (("REMAT on", True), ("REMAT off, sequential", False)):
+        dec.remat, dec.batched_grad = remat, False
+        total, top = saved_for_backward(model, batches[0], gen)
+        phase("scaled", f"{label}: autograd keeps {total / 2 ** 30:.3f} GiB "
+              "for the backward of one step's forward (distinct storages; "
+              "under REMAT the iterations' own are dropped); largest: "
+              + "; ".join(f"{n} x {shape} {str(dt)[6:]} "
+                          f"{nb / 2 ** 20:.1f} MiB"
+                          for (shape, dt), (n, nb) in top))
+    check(mem_dtypes == [torch.bfloat16] * (3 * steps),
+          f"scaled: the decoder's memory came as {mem_dtypes}, want "
+          "bfloat16 (B1 and B4 take the memory's dtype)")
+    dec.remat, dec.batched_grad = True, True
+
+    # one eval forward
+    batch = scaled_batches(mcfg, [7], BATCH_KEYS)[0]
+    reset_launch_counts()
+    with torch.inference_mode():
+        out = model.eval()(batch)
+    eval_counts = launch_counts()
+    check(eval_counts == SCALED_VAL_KERNELS, f"scaled eval: launches "
+          f"{eval_counts}, want {SCALED_VAL_KERNELS}")
+    L, Q = mcfg.dec_layers, mcfg.num_queries
+    check(out["pred_logits"].shape == (L, 1, Q, mcfg.num_semcls + 1)
+          and all(bool(torch.isfinite(v).all()) for v in out.values()
+                  if v.is_floating_point()), "scaled eval: outputs")
+    phase("scaled", f"eval forward B=1: outputs finite, pred_logits "
+          f"{tuple(out['pred_logits'].shape)}; launches {eval_counts}")
+    del model, opt, out
+    torch.cuda.empty_cache()
+    scaled_remat_gate(mcfg)
+    scaled_cli(smi_line)
+    remat_counts["flash_cross_attention_fwd"] = eval_counts[
+        "flash_cross_attention_fwd"]
+    return remat_counts
+
+
+def saved_for_backward(model, batch, gen, top=5):
+    """(bytes, the `top` largest kinds) of the tensors autograd keeps for
+    the backward of one training forward and loss, counted once per
+    storage, the parameters' own not counted: a diagnostic of what REMAT
+    drops."""
+    from parq_torch.train.train_step import forward_and_loss
+    params = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in params:
+            seen.setdefault(st.data_ptr(), ((tuple(t.shape), t.dtype),
+                                            st.nbytes()))
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        losses, _ = forward_and_loss(model, batch, gen)
+    del losses
+    kinds = {}
+    for kind, nb in seen.values():
+        n, b = kinds.get(kind, (0, 0))
+        kinds[kind] = (n + 1, b + nb)
+    total = sum(b for _, b in kinds.values())
+    return total, sorted(kinds.items(), key=lambda kv: -kv[1][1])[:top]
+
+
+def scaled_remat_gate(mcfg):
+    """REMAT on against off (the sequential path) on the card: f32, TF32
+    off, dropout 0, the same weights, batch and matcher draws; each
+    gradient to the train-parity tolerance."""
+    from parq_torch.models import build_model
+    from parq_torch.train.__main__ import TRAIN_KEYS
+    from parq_torch.train.train_step import forward_and_loss
+    f32 = dataclasses.replace(mcfg, compute_dtype="float32", dropout_rate=0.0,
+                              batched_grad=False)
+    batch = scaled_batches(f32, [5], TRAIN_KEYS)[0]
+    u = torch.rand((f32.dec_layers, f32.num_queries,
+                    batch["obbs_padded"].shape[1]),
+                   generator=torch.Generator().manual_seed(0))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grads, losses = {}, {}
+    for remat in (True, False):
+        model = build_model(dataclasses.replace(f32, remat=remat), seed=1,
+                            device="cuda").train()
+        lo, _ = forward_and_loss(model, batch, None, uniforms=u)
+        lo["total_loss"].backward()
+        losses[remat] = float(lo["total_loss"].detach())
+        grads[remat] = {n: p.grad.detach() for n, p in
+                        model.named_parameters()}
+        del model, lo
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    check(abs(losses[True] - losses[False]) <= 1e-3 * max(abs(losses[False]),
+                                                          1.0),
+          f"scaled remat gate: loss {losses[True]} vs {losses[False]}")
+    total = math.sqrt(sum(float(g.norm()) ** 2 for g in grads[False].values()))
+    worst, worst_name = 0.0, ""
+    for n, g in grads[False].items():
+        err = float((grads[True][n] - g).norm())
+        check(err <= 5e-3 * float(g.norm()) + 1e-6 * total,
+              f"scaled remat gate: {n} gradient off by {err} (norm "
+              f"{float(g.norm())})")
+        rel = err / max(float(g.norm()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, n
+    phase("scaled", f"f32 gate, REMAT on vs off on the card (TF32 off, "
+          f"dropout 0, L={f32.dec_layers}, 6 views): loss {losses[True]:.6f}"
+          f" vs {losses[False]:.6f}; {len(grads[False])} gradients, worst "
+          f"‖Δ‖/‖g‖ {worst:.2e} ({worst_name}); limit 5e-3·‖g‖ + "
+          f"1e-6·‖G‖, ‖G‖ = {total:.4g}")
+    del grads
+    torch.cuda.empty_cache()
+
+
+def scaled_cli(smi_line):
+    """`python -m parq_torch.cli.train` on configs/scaled_recurrence.yaml
+    (in-process) with 2 synthetic snippets to train and 2 to validate (the
+    YAML plus smoke.yaml's SYNTHETIC_*_SIZE keys): 2 steps, a validation,
+    a checkpoint, the final validation."""
+    from parq_torch.cli import train as cli_train
+    shutil.rmtree(SCALED_DIR, ignore_errors=True)
+    os.makedirs(SCALED_DIR)
+    with open(os.path.join(ROOT, "configs", "scaled_recurrence.yaml")) as f:
+        text = f.read()
+    yaml = os.path.join(SCALED_DIR, "scaled_recurrence.yaml")
+    with open(yaml, "w") as f:
+        f.write(text.replace("DATAMODULE:\n", "DATAMODULE:\n"
+                             "  SYNTHETIC_TRAIN_SIZE: 2\n"
+                             "  SYNTHETIC_VAL_SIZE: 2\n"))
+    opts = ["TRAINER.PRECISION", "16", "DATAMODULE.DATA_PATH", "synthetic",
+            "MODEL.DECODER.MEAN_SIZE_PATH",
+            os.path.join(ROOT, "data", "average_scan2cad.txt"),
+            "LOG_PATH", SCALED_DIR, "TRAINER.MAX_EPOCHS", "1",
+            "TRAINER.VAL_CHECK_INTERVAL", "1.0",
+            "TRAINER.LOG_EVERY_N_STEPS", "1", "CALLBACK.SAVE_TOP_K", "1"]
+    dtypes = []
+    t0 = time.perf_counter()
+    with counted_path(dtypes) as (steps, vals):
+        trainer, final = cli_train.main(["--cfg", yaml, *opts])
+    wall = time.perf_counter() - t0
+    check(len(steps) == 2 and len(vals) == 2, f"scaled cli: {len(steps)} "
+          f"steps and {len(vals)} validations, want 2 and 1 + the final one")
+    check_counts(steps, SCALED_REMAT_KERNELS, "scaled cli step")
+    check_counts(vals, {k: 2 * n for k, n in SCALED_VAL_KERNELS.items()},
+                 "scaled cli validation (2 snippets)")
+    check(all(d == torch.bfloat16 for seen in dtypes for d in seen),
+          f"scaled cli: the decoder's memory came as {dtypes}")
+    with open(trainer.metrics_path) as f:
+        losses = [json.loads(line)["total_loss"] for line in f
+                  if json.loads(line)["stage"] == "train"]
+    check(len(losses) == 2 and all(map(math.isfinite, losses)),
+          f"scaled cli: losses {losses}")
+    phase("scaled", f"[{smi_line}] train twin on scaled_recurrence.yaml: "
+          f"2 steps ({', '.join(f'{ms:.1f}' for _, ms in steps)} ms, losses "
+          + ", ".join(f"{v:.5f}" for v in losses)
+          + f"), 2 validations, checkpoint {trainer.ckpt_mgr.steps()}, "
+          f"final 0.5_f1 {final.get('0.5_f1')}; {wall:.1f} s wall; per "
+          f"step launches {steps[0][0]}")
+    shutil.rmtree(SCALED_DIR, ignore_errors=True)
+
+
+# ------------------------------------------------- export and serving --
+def program_sampler_dtypes(blob):
+    """The memory's dtype at each ``parq::sample_views`` call of a saved
+    exported program, from the program's own graph (a dispatch mode that
+    watched the calls would change how the autocast region runs)."""
+    ep = torch.export.load(io.BytesIO(blob))
+    return [n.args[0].meta["val"].dtype
+            for mod in ep.graph_module.modules()
+            if isinstance(mod, torch.fx.GraphModule)
+            for n in mod.graph.nodes
+            if n.op == "call_function"
+            and n.target is torch.ops.parq.sample_views.default]
+
+
+def _max_gap(got, want):
+    """max over the float outputs of |got − want| / max(1, max |want|)."""
+    worst = 0.0
+    for k, w in want.items():
+        if not w.is_floating_point():
+            check(torch.equal(got[k], w), f"{k} differs")
+            continue
+        gap = (got[k].float() - w.float()).abs().max().item()
+        worst = max(worst, gap / max(1.0, w.float().abs().max().item()))
+    return worst
+
+
+def phase_export(smi_line, requests=3):
+    """The release eval forward exported on the card through
+    parq_torch.export.export_forward (configs/eval.yaml), saved and loaded:
+    in f32 at B=1 (TF32 off) its outputs against the live model's to 1e-5
+    (relative to max(1, |output|)); in bf16 at B=8 an Engine serving it
+    answers 3 /detect requests, each raising B1 and B2 by exactly 8 and
+    nothing else, its outputs against the live model's to 1e-2 (a bf16
+    rounding), and the program's sampler calls take bf16 memory, as the
+    live model's decoder does."""
+    from parq_torch.config import ModelConfig
+    from parq_torch.export import export_forward
+    from parq_torch.models import build_model
+    from parq_torch.serve import Engine
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    gaps = {}
+    for dtype, B in (("float32", 1), ("bfloat16", 8)):
+        tree = config_tree("eval.yaml", "TRAINER.PRECISION", "32",
+                           "TPU.COMPUTE_DTYPE", dtype)
+        mcfg = ModelConfig.from_cfg(tree)
+        if dtype == "float32":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        blob, _, batch = export_forward(tree, B, device="cuda")
+        path = os.path.join(EXPORT_DIR, f"parq_fwd_{dtype}.pt2")
+        with open(path, "wb") as f:
+            f.write(blob)
+        engine = Engine.from_cfg(tree, artifact=path, batch_size=B,
+                                 device="cuda")
+        secs = time.perf_counter() - t0
+        live = build_model(mcfg, seed=int(tree.SEED), device="cuda")
+        mem_dtypes, hook = watch_memory_dtype(live)
+        with torch.inference_mode():
+            want = live(batch)
+            got = engine.forward(batch)
+        hook.remove()
+        gaps[dtype] = _max_gap(got, want)
+        seen = program_sampler_dtypes(blob)
+        check(seen == [getattr(torch, dtype)] * mcfg.dec_layers
+              and mem_dtypes == [getattr(torch, dtype)],
+              f"export {dtype}: the program's sampler takes {seen}, the "
+              f"live model's decoder {mem_dtypes}")
+        limit = 1e-5 if dtype == "float32" else 1e-2
+        check(gaps[dtype] <= limit, f"export {dtype}: artifact vs live "
+              f"model {gaps[dtype]} > {limit}")
+        phase("export", f"{dtype} B={B}: exported, saved ({len(blob)} "
+              f"bytes), loaded and warmed up in {secs:.1f} s; artifact vs "
+              f"live model {gaps[dtype]:.2e} of max(1, |output|) (limit "
+              f"{limit}); the program's {len(seen)} sampler calls take "
+              f"{seen[0]} memory, as the live model's decoder")
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        del live
+    _, counts, n_dets = serve_requests(engine, requests, "export")
+    check_serve_counts(counts, engine.cfg.model, requests, "export")
+    phase("export", f"[{smi_line}] the bf16 artifact behind the server: "
+          f"{requests} /detect requests answered, {n_dets} detections; "
+          f"launches {counts} ({engine.cfg.model.dec_layers} of B1 and B2 "
+          "per request)")
+    del engine
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_serve_ckpt(ckpt):
+    """An Engine from configs/eval.yaml with the fit's best checkpoint
+    loaded strictly, then with the same weights as a reference-layout
+    state_dict: on one snippet their detections equal those of the eval
+    twin's model (a Trainer and `load_pretrained`, as cli/eval.py builds
+    it), at the config's CONF_THRESH and at 0, and so do its outputs (to
+    1e-4 of max(1, |output|): the detections may be none)."""
+    from parq_torch.data.synthetic import make_batch
+    from parq_torch.evals.parse_pred import parse_pred
+    from parq_torch.models import BATCH_KEYS
+    from parq_torch.serve import Engine
+    from parq_torch.train.checkpoint import load_pretrained
+    from parq_torch.train.loop import Trainer, to_device_batch
+    tree = config_tree("eval.yaml", "LOG_PATH", CLI_DIR, "NAME", "serve")
+    thresh = float(tree.MODEL.DECODER.CONF_THRESH)
+    ref_path = os.path.join(CLI_DIR, "reference_layout.pt")
+    torch.save(torch.load(ckpt, map_location="cpu", weights_only=True)
+               ["model"], ref_path)
+    raw = make_batch([100], image_size=tuple(tree.TPU.IMAGE_SIZE))
+    request = {k: raw[k] for k in BATCH_KEYS}
+
+    twin = Trainer(tree)
+    twin.setup_state(steps_per_epoch=1)
+    load_pretrained(twin.model, ckpt, strict=True)
+    with torch.inference_mode():
+        batch = to_device_batch(raw, "cuda")
+        out = twin.model.eval()(batch)
+    last = {k: v[-1] for k, v in out.items()}
+    host = parse_pred(last, batch["T_world_local"],
+                      tuple(tree.MODEL.DECODER.TRACK_SCALE),
+                      int(tree.MODEL.DECODER.NUM_SEMCLS))
+    center = last["center_unnormalized"].float().cpu().numpy()
+
+    def twin_dets(t):
+        keep = np.where(host["pred_mask"][0] & (host["scores"][0] >= t))[0]
+        return [(int(host["labels"][0, k]), float(host["scores"][0, k]),
+                 center[0, k]) for k in keep]
+    del twin
+    counts, gaps = {}, {}
+    for label, path in (("checkpoint", ckpt), ("reference layout",
+                                                ref_path)):
+        engine = Engine.from_cfg(tree, checkpoint=path, batch_size=1)
+        check(engine.cfg.conf_thresh == thresh, f"serve-ckpt: threshold "
+              f"{engine.cfg.conf_thresh}, config {thresh}")
+        gaps[label] = _max_gap(engine.forward(
+            {k: batch[k] for k in BATCH_KEYS}), out)
+        check(gaps[label] <= 1e-4, f"serve-ckpt {label}: outputs off the "
+              f"eval twin's by {gaps[label]}")
+        for t in (thresh, 0.0):
+            engine.cfg = dataclasses.replace(engine.cfg, conf_thresh=t)
+            got = engine.detect(request)[0]
+            want = twin_dets(t)
+            check([d["label"] for d in got] == [w[0] for w in want]
+                  and all(abs(d["score"] - w[1]) <= 1e-4 and np.allclose(
+                      d["center"], w[2], atol=1e-4, rtol=0)
+                      for d, w in zip(got, want)),
+                  f"serve-ckpt {label} at {t}: {len(got)} detections differ "
+                  f"from the eval twin's {len(want)}")
+            counts[(label, t)] = len(got)
+        del engine
+    phase("serve-ckpt", f"Engine from eval.yaml with "
+          f"{os.path.relpath(ckpt, ROOT)} (strict), and as a "
+          f"reference-layout state_dict: outputs off the eval twin's by "
+          f"{gaps['checkpoint']:.2e} and {gaps['reference layout']:.2e} of "
+          f"max(1, |output|) (limit 1e-4); detections equal at CONF_THRESH "
+          f"{thresh} ({counts[('checkpoint', thresh)]}) and at 0 "
+          f"({counts[('checkpoint', 0.0)]})")
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------- parallel phases --
@@ -1796,10 +2450,14 @@ def main():
         phase_build()
         cfg = ModelConfig(compute_dtype="bfloat16")
         errs = phase_kernels(cfg)
+        scaled_cfg = scaled_model_cfg()
+        scaled_errs = scaled_kernels(scaled_cfg)
         engine, counts, requests = phase_serve(ServeConfig(model=cfg), 8)
         phase_parity(cfg)
         train_counts, _ = phase_train(cfg)
         phase_train_parity(cfg)
+        phase_train_parity(dataclasses.replace(cfg, share_weights=False),
+                           "unshared")
         rows = phase_times(cfg, engine, counts, requests, train_counts,
                            errs)
         del engine
@@ -1810,6 +2468,12 @@ def main():
         torch.cuda.empty_cache()
         ckpt, _ = phase_fit(smi_line)
         phase_eval(ckpt, smi_line)
+        phase_serve_ckpt(ckpt)
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+        scaled_counts = phase_scaled(smi_line)
+        rows += scaled_rows(scaled_cfg, scaled_errs, scaled_counts)
+        phase_export(smi_line)
         phase_fit_sp(smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -6,9 +6,11 @@
 Prints each snippet's latency, then every metric as `key value`: per-class
 and mean F1, accuracy and recall at IoU 0.25/0.5/0.7, total_loss and
 mean_latency_s. CHECKPOINT_PATH loads strictly: the port's checkpoints and
-state_dicts in the reference layout (parq_release.ckpt's); without it the
-weights are random from SEED. `DATAMODULE.DATA_PATH synthetic` evaluates 8
-synthetic snippets. It runs on CUDA and raises without a GPU unless
+state_dicts in the reference layout (parq_release.ckpt's; with SHARE_WEIGHTS
+False such a file fills iteration 0 only, so a strict load of it fails, as
+in eval.py); without it the weights are random from SEED.
+`DATAMODULE.DATA_PATH synthetic` evaluates 8 synthetic snippets of
+NUM_FRAMES_PER_SNIPPET views (eval.py's always have 3). It runs on CUDA and raises without a GPU unless
 TPU.PLATFORM (or env PARQ_PLATFORM) is "cpu". Under torchrun (RANK,
 WORLD_SIZE, LOCAL_RANK) every rank evaluates the whole set on its
 cuda:LOCAL_RANK, the model group sharding the memory tokens under
@@ -55,7 +57,8 @@ def main(argv=None):
     dm = cfg.DATAMODULE
     size = tuple(cfg.TPU.IMAGE_SIZE)
     if dm.DATA_PATH == "synthetic":
-        ds = SyntheticDataset(num_snippets=8, image_size=size, seed=1000)
+        ds = SyntheticDataset(num_snippets=8, image_size=size, seed=1000,
+                              num_views=int(dm.NUM_FRAMES_PER_SNIPPET))
     else:
         ds = ScanNetDataset(dm.DATA_PATH, dm.VAL_ANNOTATION_PATH,
                             num_frames_per_snippet=dm.NUM_FRAMES_PER_SNIPPET,
@@ -64,6 +67,8 @@ def main(argv=None):
     loader = SnippetLoader(ds, dm.BATCH_SIZE, shuffle=False, drop_last=False)
     trainer.setup_state(steps_per_epoch=max(len(loader), 1))
     if cfg.CHECKPOINT_PATH:
+        # the model's layout follows SHARE_WEIGHTS (eval.py:70 passes it to
+        # the converter): an unshared model wants every iteration's keys
         load_pretrained(trainer.model, cfg.CHECKPOINT_PATH, strict=True)
         logging.info("loaded checkpoint %s", cfg.CHECKPOINT_PATH)
     metrics = trainer.validate(loader,

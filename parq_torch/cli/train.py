@@ -58,13 +58,16 @@ def build_loaders(cfg, mesh=None):
                 SnippetLoader(val_ds, dm.BATCH_SIZE, shuffle=False,
                               drop_last=False, seed=cfg.SEED, **host))
     if dm.DATA_PATH == "synthetic" or dm.DATASET == "synthetic":
+        # NUM_FRAMES_PER_SNIPPET views (train.py's synthetic loaders always
+        # make 3), so a config's view count reaches the card
         from ..data import SyntheticDataset
+        views = int(dm.NUM_FRAMES_PER_SNIPPET)
         train_ds = SyntheticDataset(
             num_snippets=dm.get("SYNTHETIC_TRAIN_SIZE", 32),
-            image_size=size, seed=0)
+            image_size=size, num_views=views, seed=0)
         val_ds = SyntheticDataset(
             num_snippets=dm.get("SYNTHETIC_VAL_SIZE", 8),
-            image_size=size, seed=1000)
+            image_size=size, num_views=views, seed=1000)
     else:
         train_ds, val_ds = (ScanNetDataset(
             dm.DATA_PATH, path,

@@ -4,10 +4,9 @@ package's tree key for key, so the shipped YAMLs load unchanged, with its
 
 The port reads the TPU section where a key has a meaning on the card
 (`platform_device`, `check_card_support`): PLATFORM chooses the device,
-COMPUTE_DTYPE, IMAGE_SIZE, FPN_CHANNELS, BATCHED_GRAD and PROFILE_STEPS
-are honoured; the keys of levers the port cannot pull yet are rejected
-when set away from their defaults; the keys of TPU levers are accepted
-and logged as not applying (the hand-written kernels always run).
+COMPUTE_DTYPE, IMAGE_SIZE, FPN_CHANNELS, BATCHED_GRAD, REMAT, DEBUG_NANS
+and PROFILE_STEPS are honoured; the keys of TPU levers are accepted and
+logged as not applying (the hand-written kernels always run).
 """
 import logging
 import os
@@ -124,9 +123,11 @@ _C.MODEL.DECODER.TRANSFORMER.SHARE_WEIGHTS = True
 
 # The JAX package's TPU section, key for key. On the card: PLATFORM "cpu"
 # (or env PARQ_PLATFORM=cpu) runs the plain versions on the CPU, anything
-# else CUDA; COMPUTE_DTYPE, IMAGE_SIZE, FPN_CHANNELS, BATCHED_GRAD and
-# PROFILE_STEPS (a torch.profiler trace of N train steps into
-# <workdir>/profile) are honoured; see `check_card_support` for the rest.
+# else CUDA; COMPUTE_DTYPE, IMAGE_SIZE, FPN_CHANNELS, BATCHED_GRAD, REMAT
+# (recompute each decoder iteration in the backward), DEBUG_NANS (stop at
+# the first non-finite value) and PROFILE_STEPS (a torch.profiler trace of
+# N train steps into <workdir>/profile) are honoured; see
+# `check_card_support` for the rest.
 _C.TPU = CN()
 _C.TPU.PLATFORM = ""
 _C.TPU.MESH_DATA = -1
@@ -216,33 +217,23 @@ def platform_device(cfg: CN) -> str:
                      "runs on 'cuda' (the default) or 'cpu'")
 
 
-# Levers the port cannot pull yet: rejected when set away from these values.
-# (MESH_DATA, MESH_MODEL, SEQ_PARALLEL and NUM_NODES are honoured: the
-# Trainer lays its ranks out as a (data, model) grid; MESH_MODEL > 1
-# without SEQ_PARALLEL runs replicated, as the JAX Trainer does.)
-_NOT_YET = {
-    ("TPU", "REMAT"): (False,),
-    ("TPU", "DEBUG_NANS"): (False,),
-    ("TPU", "PARAM_DTYPE"): ("float32",),
-    ("MODEL", "DECODER", "TRANSFORMER", "SHARE_WEIGHTS"): (True,),
-}
 # TPU levers with no counterpart on the card: accepted and logged.
+# PARAM_DTYPE is one: the JAX package reads it nowhere
+# (parq_tpu/config/defaults.py:127 is its only mention), so its parameters
+# are float32 whatever it says, and the port's are too. REMAT,
+# DEBUG_NANS and MODEL.DECODER.TRANSFORMER.SHARE_WEIGHTS are honoured
+# (models/decoder.py, train/loop.py), as are MESH_DATA, MESH_MODEL,
+# SEQ_PARALLEL and NUM_NODES (the Trainer's (data, model) grid).
 _TPU_LEVERS = ("USE_PALLAS_SAMPLER", "USE_FLASH_CROSS_ATTN",
-               "DONATE_TRAIN_STATE", "ASYNC_CHECKPOINTING", "RNG_IMPL")
+               "DONATE_TRAIN_STATE", "ASYNC_CHECKPOINTING", "RNG_IMPL",
+               "PARAM_DTYPE")
 
 
 def check_card_support(cfg: CN) -> None:
-    """Reject the keys the port cannot honour yet, and log the TPU levers,
-    which do not apply on the card."""
-    for path, allowed in _NOT_YET.items():
-        node = cfg
-        for p in path:
-            node = node[p]
-        if node not in allowed:
-            raise ValueError(
-                f"{'.'.join(path)}={node!r} is not supported by parq_torch "
-                f"yet (allowed: {list(allowed)}); see ROADMAP.md §A2")
+    """Log the TPU levers, which do not apply on the card. Every key of
+    the schema is honoured or is one of them, so no config the JAX package
+    runs is refused."""
     logging.getLogger(__name__).info(
         "TPU levers that do not apply on the card (the hand-written kernels "
-        "always run): %s", ", ".join(f"{k}={cfg.TPU[k]!r}"
-                                     for k in _TPU_LEVERS))
+        "always run; parameters are float32): %s",
+        ", ".join(f"{k}={cfg.TPU[k]!r}" for k in _TPU_LEVERS))

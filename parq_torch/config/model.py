@@ -44,6 +44,8 @@ class ModelConfig:
     compute_dtype: str = "float32"                # or "bfloat16"
     dropout_rate: float = 0.1                     # decoder, training only
     batched_grad: bool = True                     # the two-phase fold
+    share_weights: bool = True                    # one decoder iteration, L times
+    remat: bool = False                           # recompute each iteration
 
     @classmethod
     def tiny(cls, **overrides) -> "ModelConfig":
@@ -59,8 +61,8 @@ class ModelConfig:
     @classmethod
     def from_cfg(cls, cfg) -> "ModelConfig":
         """The model a config tree describes (parq_tpu/models/parq.py:53-90):
-        widths from MODEL, the input size, FPN width and compute dtype from
-        the TPU section, the ARKit class names for the mean-size table when
+        widths and SHARE_WEIGHTS from MODEL, the input size, FPN width,
+        compute dtype, BATCHED_GRAD and REMAT from the TPU section, the ARKit class names for the mean-size table when
         DATAMODULE.DATASET is arkitscenes."""
         m, t = cfg.MODEL, cfg.MODEL.DECODER.TRANSFORMER
         class_names = None
@@ -90,7 +92,9 @@ class ModelConfig:
             class_names=class_names,
             compute_dtype=str(cfg.TPU.COMPUTE_DTYPE),
             dropout_rate=float(t.DROPOUT_RATE),
-            batched_grad=bool(cfg.TPU.BATCHED_GRAD))
+            batched_grad=bool(cfg.TPU.BATCHED_GRAD),
+            share_weights=bool(t.SHARE_WEIGHTS),
+            remat=bool(cfg.TPU.REMAT))
 
     @property
     def feat_size(self) -> Tuple[int, int]:
@@ -105,6 +109,21 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
+    """The served model and the host half's settings: the track-scale box
+    of `parse_pred`, its NMS switch and the score threshold of a kept
+    detection. The defaults are configs/eval.yaml's."""
     model: ModelConfig = ModelConfig()
     track_scale: Tuple[float, ...] = (-1.5, 1.5, -2.0, 1.0, 0.0, 2.0)
     conf_thresh: float = 0.8
+    enable_nms: bool = True
+
+    @classmethod
+    def from_cfg(cls, cfg) -> "ServeConfig":
+        """From a config tree: the model of `ModelConfig.from_cfg`, and
+        TRACK_SCALE, ENABLE_NMS and CONF_THRESH from MODEL.DECODER, as
+        scripts/serve.py reads them (:135-142)."""
+        dec = cfg.MODEL.DECODER
+        return cls(model=ModelConfig.from_cfg(cfg),
+                   track_scale=tuple(float(v) for v in dec.TRACK_SCALE),
+                   conf_thresh=float(dec.CONF_THRESH),
+                   enable_nms=bool(dec.ENABLE_NMS))

@@ -1,8 +1,7 @@
 """JAX-package variables → the port's state_dict.
 
 `state_dict_from_flax` takes the ``{"params", "frozen"}`` tree of
-parq_tpu's PARQModel (nested dicts of numpy arrays; shared decoder weights
-only) and returns the port's state_dict in the reference checkpoint's key
+parq_tpu's PARQModel (nested dicts of numpy arrays) and returns the port's state_dict in the reference checkpoint's key
 layout. It inverts parq_tpu/io/torch_convert.py:convert_parq_checkpoint:
 
 - Dense kernels (I, O) → Linear weights (O, I); conv kernels
@@ -16,7 +15,11 @@ layout. It inverts parq_tpu/io/torch_convert.py:convert_parq_checkpoint:
 - the rayPE encoder's first kernel maps as it is: the JAX encoder stores
   it in the sample-major row order and applies its channel-major
   permutation in the forward (MLP2.in_perm), which is the port's order;
-- ``refpoint`` → ``box3d_decoder.refpoint.weight``.
+- ``refpoint`` → ``box3d_decoder.refpoint.weight``;
+- unshared iterations (SHARE_WEIGHTS False): ``iteration_0`` maps as the
+  shared ``iteration`` does, ``iteration_{i}`` for i ≥ 1 into
+  ``box3d_decoder.iterations.{i}.{position_encoder, layer, mlp_heads}``,
+  its cross-attention query into ``layer.multihead_attn.q_proj``.
 
 The dead ``decoder.norm`` of released checkpoints has no counterpart.
 
@@ -120,10 +123,37 @@ def _backbone_and_ray_pe(params, linear, conv, frozen_bn):
 
 
 def _decoder(params, sd, linear):
-    it = "box3d_decoder/iteration"
-    linear(f"{it}/position_encoder/Dense_0", f"{_DEC}.position_encoder.0")
-    linear(f"{it}/position_encoder/Dense_1", f"{_DEC}.position_encoder.2")
-    lay, lay_t = f"{it}/layer", f"{_DEC}.layers.0"
+    """The decoder: the shared ``iteration``, or ``iteration_{i}`` of an
+    unshared decoder (iteration 0 into the shared layout's keys, i ≥ 1
+    into ``iterations.{i}``, whose layer has the query projection alone)."""
+    dec = params["box3d_decoder"]
+    if "iteration" in dec:
+        _iteration(params, sd, linear, "box3d_decoder/iteration", _DEC,
+                   f"{_DEC}.layers.0", _HEADS, kv=True)
+    else:
+        i = 0
+        while f"iteration_{i}" in dec:
+            it = f"box3d_decoder/iteration_{i}"
+            if i == 0:
+                _iteration(params, sd, linear, it, _DEC, f"{_DEC}.layers.0",
+                           _HEADS, kv=True)
+            else:
+                own = f"box3d_decoder.iterations.{i}"
+                _iteration(params, sd, linear, it, own, f"{own}.layer",
+                           f"{own}.mlp_heads", kv=False)
+            i += 1
+    sd["box3d_decoder.refpoint.weight"] = _get(params,
+                                               "box3d_decoder/refpoint")
+
+
+def _iteration(params, sd, linear, it, pe_t, lay_t, heads_t, kv):
+    """One DecoderIteration's params → the port's keys: the position
+    encoder under `pe_t`, the layer under `lay_t`, the heads under
+    `heads_t`. `kv`: the layer's cross-attention carries the decoder-level
+    key/value projections (one ``in_proj_weight``); else ``q_proj``."""
+    linear(f"{it}/position_encoder/Dense_0", f"{pe_t}.position_encoder.0")
+    linear(f"{it}/position_encoder/Dense_1", f"{pe_t}.position_encoder.2")
+    lay = f"{it}/layer"
 
     def heads_kernel(path):          # (D, H, hd) → torch (D_out, D_in)
         k = _get(params, f"{path}/kernel")
@@ -143,12 +173,18 @@ def _decoder(params, sd, linear):
     sd[f"{lay_t}.self_attn.in_proj_bias"] = np.concatenate(
         [heads_bias(f"{sa}/{n}") for n in ("query", "key", "value")])
     out_proj(f"{sa}/out", f"{lay_t}.self_attn")
-    cross = (f"{lay}/cross_attn_query", "box3d_decoder/cross_attn_key",
-             "box3d_decoder/cross_attn_value")
-    sd[f"{lay_t}.multihead_attn.in_proj_weight"] = np.concatenate(
-        [heads_kernel(p) for p in cross])
-    sd[f"{lay_t}.multihead_attn.in_proj_bias"] = np.concatenate(
-        [heads_bias(p) for p in cross])
+    if kv:
+        cross = (f"{lay}/cross_attn_query", "box3d_decoder/cross_attn_key",
+                 "box3d_decoder/cross_attn_value")
+        sd[f"{lay_t}.multihead_attn.in_proj_weight"] = np.concatenate(
+            [heads_kernel(p) for p in cross])
+        sd[f"{lay_t}.multihead_attn.in_proj_bias"] = np.concatenate(
+            [heads_bias(p) for p in cross])
+    else:
+        sd[f"{lay_t}.multihead_attn.q_proj.weight"] = heads_kernel(
+            f"{lay}/cross_attn_query")
+        sd[f"{lay_t}.multihead_attn.q_proj.bias"] = heads_bias(
+            f"{lay}/cross_attn_query")
     out_proj(f"{lay}/cross_attn_out", f"{lay_t}.multihead_attn")
     linear(f"{lay}/linear1", f"{lay_t}.linear1")
     linear(f"{lay}/linear2", f"{lay_t}.linear2")
@@ -159,7 +195,7 @@ def _decoder(params, sd, linear):
     # ---- heads: GenericMLP layer indices (Conv1d, GN, ReLU, Dropout)·n, out
     for name, n_hidden in (("sem_cls_head", 0), ("center_head", 2),
                            ("size_head", 0), ("rotation_head", 2)):
-        pf, pt = f"{it}/{name}", f"{_HEADS}.{name}.layers"
+        pf, pt = f"{it}/{name}", f"{heads_t}.{name}.layers"
         for h in range(n_hidden):
             sd[f"{pt}.{4 * h}.weight"] = \
                 _get(params, f"{pf}/Dense_{h}/kernel").T[:, :, None]
@@ -171,6 +207,3 @@ def _decoder(params, sd, linear):
             _get(params, f"{pf}/Dense_{n_hidden}/kernel").T[:, :, None]
         sd[f"{pt}.{4 * n_hidden}.bias"] = \
             _get(params, f"{pf}/Dense_{n_hidden}/bias")
-
-    sd["box3d_decoder.refpoint.weight"] = _get(params,
-                                               "box3d_decoder/refpoint")

@@ -27,7 +27,11 @@ sequence-parallel training path) run the same kernels on other strides,
 through their own wrappers and counts.
 
 Each wrapper counts its launches in a ``launches`` attribute (a split
-forward with its combine kernel is one launch).
+forward with its combine kernel is one launch). B1 and the eval form of
+B2 run through the custom ops ``parq::sample_views`` and
+``parq::flash_kv_fused`` (registered when this package is imported), so a
+`torch.export` program of the eval forward (`parq_torch.export`) launches
+them, and counts them, as the live model does.
 `SERVE_KERNELS` are the ones a forward for serving launches; the training
 step launches all but the eval form of B2.
 """

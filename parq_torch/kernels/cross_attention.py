@@ -19,7 +19,9 @@ kernel serves every layout in place:
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
 runs its plain version for CPU tensors:
 
-- `flash_cross_attention_kv_fused` — B2, eval form (no dropout, no LSE);
+- `flash_cross_attention_kv_fused` — B2, eval form (no dropout, no LSE),
+  through the custom op ``parq::flash_kv_fused`` so that `torch.export`
+  keeps the launch;
 - `flash_fwd_lse` — B2, train form: also the rowwise logsumexp, and
   weight dropout drawn in the kernel from one seed per group of rows;
 - `flash_bwd` — B3, (dq, dKV) from (q, kv, do, lse, delta, seeds);
@@ -433,9 +435,24 @@ def _raise_on(err: int, what: str):
 def flash_cross_attention_kv_fused(q: torch.Tensor, kv: torch.Tensor
                                    ) -> torch.Tensor:
     """Kernel B2. q (B, H, Q, D), kv (B, N, H·2D), both bf16 or both f32
-    → o (B, H, Q, D) in q's dtype. CPU tensors take the plain version."""
-    if q.device.type == "cpu":
-        return cross_attention_kv_fused_plain(q, kv)
+    → o (B, H, Q, D) in q's dtype. CPU tensors take the plain version. It
+    runs through the custom op ``parq::flash_kv_fused``, so `torch.export`
+    keeps the launch in an exported program."""
+    return torch.ops.parq.flash_kv_fused(q, kv)
+
+
+@torch.library.custom_op("parq::flash_kv_fused", mutates_args=())
+def _flash_kv_fused_op(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+    return cross_attention_kv_fused_plain(q, kv)
+
+
+@_flash_kv_fused_op.register_fake
+def _(q, kv):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@_flash_kv_fused_op.register_kernel("cuda")
+def _flash_kv_fused_cuda(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
     return _flash_fwd(q, kv, None)
 
 

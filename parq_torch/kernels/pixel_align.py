@@ -8,7 +8,10 @@ bilinear taps of every view, scales and sums them, and B4 is its transpose
 onto the memory: every output pixel gathers the cotangent rows whose taps
 land on it and is written once. Each wrapper (`sample_views`,
 `sample_views_bwd_mem`) launches its CUDA kernel for a CUDA tensor (or
-raises) and runs its plain version for a CPU tensor.
+raises) and runs its plain version for a CPU tensor. B1 is the custom op
+``parq::sample_views`` (a CUDA implementation that launches the kernel, a
+CPU one that is the plain version, a fake one for shapes), so an exported
+program (`parq_torch.export`) launches it as the live model does.
 
 The training entries mirror the JAX package's custom VJPs:
 `pixel_aligned_features_train` (forward B1, backward B4;
@@ -66,9 +69,27 @@ def _lib():
 
 def sample_views(memory: torch.Tensor, uvs: torch.Tensor) -> torch.Tensor:
     """Kernel B1. memory (B, T, H, W, C) bf16 or f32, uvs (B, T, Q, 4) f32
-    → (B, Q, C) f32. CPU tensors take the plain version."""
-    if memory.device.type == "cpu":
-        return sample_views_plain(memory, uvs)
+    → (B, Q, C) f32. CPU tensors take the plain version. It runs through
+    the custom op ``parq::sample_views``, so `torch.export` keeps the
+    launch in an exported program."""
+    return torch.ops.parq.sample_views(memory, uvs)
+
+
+@torch.library.custom_op("parq::sample_views", mutates_args=())
+def _sample_views_op(memory: torch.Tensor, uvs: torch.Tensor
+                     ) -> torch.Tensor:
+    return sample_views_plain(memory, uvs)
+
+
+@_sample_views_op.register_fake
+def _(memory, uvs):
+    B, T, H, W, C = memory.shape
+    return memory.new_empty((B, uvs.shape[2], C), dtype=torch.float32)
+
+
+@_sample_views_op.register_kernel("cuda")
+def _sample_views_cuda(memory: torch.Tensor, uvs: torch.Tensor
+                       ) -> torch.Tensor:
     B, T, H, W, C = memory.shape
     Q = uvs.shape[2]
     if memory.dtype not in (torch.bfloat16, torch.float32):

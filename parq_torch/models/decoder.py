@@ -1,19 +1,22 @@
 """PARQ recurrent decoder (port of parq_tpu/models/decoder.py).
 
-L weight-shared iterations (a Python loop; the JAX package scans). Per
-iteration: sinusoidal posemb of the reference points → query position MLP;
-project the points into every view and sample pixel-aligned features
-(kernel B1); a post-norm decoder layer (self-attention over the Q queries,
-cross-attention over the T·H·W memory tokens through kernel B2, FFN);
-the four MLP heads; new reference points = the detached normalized
-predicted centers. Outputs are stacked on a leading L axis.
+L iterations, weight-shared or not (a Python loop; the JAX package scans
+the shared one). Per iteration: sinusoidal posemb of the reference points
+→ query position MLP; project the points into every view and sample
+pixel-aligned features (kernel B1); a post-norm decoder layer
+(self-attention over the Q queries, cross-attention over the T·H·W memory
+tokens through kernel B2, FFN); the four MLP heads; new reference points =
+the detached normalized predicted centers. Outputs are stacked on a
+leading L axis.
 
 The memory K/V projection runs ONCE per forward (the memory is the same in
 every iteration), as one matmul whose output columns are head-interleaved
 ``[K_h | V_h]``: the (B, N, H·2D) buffer kernels B2 and B3 read in place.
 
 Training (``deterministic=False``) runs the JAX package's two-phase
-batched-gradient fold (decoder.py:714-761) unless ``batched_grad`` is off.
+batched-gradient fold (decoder.py:714-761) unless ``batched_grad`` is off,
+the weights are unshared or the iterations are recomputed (`remat`; see
+`PARQDecoder`).
 The new reference points are detached, so the L iterations are
 gradient-independent given their input points:
   1. a no-grad sequential pass yields the reference-point trajectory and
@@ -50,7 +53,8 @@ Parallel runs (`set_parallel`):
 
 Parameter names follow the reference checkpoint: ``refpoint``,
 ``parq_module.decoder.{position_encoder, layers.0.*}`` and
-``mlp_heads.{sem_cls,center,size,rotation}_head``.
+``mlp_heads.{sem_cls,center,size,rotation}_head``; an unshared decoder
+adds ``iterations.{i}.{position_encoder, layer, mlp_heads}`` for i ≥ 1.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..geometry import Camera, Pose, inverse_sigmoid
 from ..kernels import (flash_cross_attention_kv_fused,
@@ -174,12 +179,27 @@ def self_attention(mha: nn.MultiheadAttention, q_in: torch.Tensor,
     return mha.out_proj(o.transpose(1, 2).reshape(q_in.shape[0], -1, D))
 
 
+class QueryOutProjection(nn.Module):
+    """The cross-attention's query and output projections alone
+    (``q_proj``, ``out_proj``): the layer of an unshared iteration ≥ 1,
+    whose memory K/V come from iteration 0's projection, as the JAX
+    package hoists that projection to the decoder (decoder.py:615-686)."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.embed_dim, self.num_heads = dim, heads
+        self.q_proj = nn.Linear(dim, dim)
+        self.out_proj = nn.Linear(dim, dim)
+
+
 class DecoderLayer(nn.Module):
     """Post-norm transformer decoder layer. Cross-attention takes the
     precomputed fused K/V buffer; this layer owns its query and output
-    projections (``multihead_attn.in_proj_weight[:D]`` and ``out_proj``).
-    The LayerNorms use eps 1e-6, flax's default, as the JAX package does
-    (the torch reference's 1e-5 differs from both).
+    projections (``multihead_attn.in_proj_weight[:D]`` and ``out_proj``;
+    with `kv_proj` off, ``multihead_attn`` is a `QueryOutProjection` and
+    the layer carries no K/V weights). The LayerNorms use eps 1e-6, flax's
+    default, as the JAX package does (the torch reference's 1e-5 differs
+    from both).
 
     `groups` lists the decoder iterations whose queries the token axis
     holds (g-major, Q0 each): one for a sequential call, all L for the
@@ -187,12 +207,13 @@ class DecoderLayer(nn.Module):
     axis, and every dropout site draws one mask per group."""
 
     def __init__(self, dim: int, heads: int, ffn_dim: int,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, kv_proj: bool = True):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.self_attn = nn.MultiheadAttention(dim, heads, batch_first=True)
-        self.multihead_attn = nn.MultiheadAttention(dim, heads,
-                                                    batch_first=True)
+        self.multihead_attn = (
+            nn.MultiheadAttention(dim, heads, batch_first=True) if kv_proj
+            else QueryOutProjection(dim, heads))
         self.linear1 = nn.Linear(dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, dim)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
@@ -211,6 +232,14 @@ class DecoderLayer(nn.Module):
         bv = b[2 * D:].view(H, 1, D // H)
         return (torch.cat([wk, wv], dim=1).reshape(2 * D, -1),
                 torch.cat([bk, bv], dim=1).reshape(2 * D))
+
+    def cross_query(self, x: torch.Tensor) -> torch.Tensor:
+        """The cross-attention's query projection of `x`."""
+        mha = self.multihead_attn
+        if isinstance(mha, QueryOutProjection):
+            return mha.q_proj(x)
+        D = mha.embed_dim
+        return F.linear(x, mha.in_proj_weight[:D], mha.in_proj_bias[:D])
 
     def kv_projection(self, memory_tokens: torch.Tensor, fused: bool,
                       sp_group=None):
@@ -265,9 +294,8 @@ class DecoderLayer(nn.Module):
 
         mha = self.multihead_attn
         D = mha.embed_dim
-        cq = F.linear(tgt + query_pos, mha.in_proj_weight[:D],
-                      mha.in_proj_bias[:D])
-        cq = _heads_split(cq, H)                     # (B, H, GQ, hd)
+        cq = _heads_split(self.cross_query(tgt + query_pos),
+                          H)                         # (B, H, GQ, hd)
         sp = group_size(sp_group) > 1
         kv_t = kv if torch.is_tensor(kv) else kv[0]
         needs_grad = torch.is_grad_enabled() and (cq.requires_grad
@@ -340,6 +368,21 @@ class _MLPHeads(nn.Module):
         self.rotation_head = HeadMLP(dim, (dim, dim), 6)
 
 
+class _Iteration(nn.Module):
+    """The own modules of decoder iteration i ≥ 1 when the iterations do
+    not share weights (the JAX package's ``iteration_{i}``,
+    decoder.py:783-792): its position encoder, its decoder layer without
+    K/V weights, and its four heads."""
+
+    def __init__(self, dim: int, heads: int, ffn_dim: int,
+                 dropout_rate: float, num_semcls: int):
+        super().__init__()
+        self.position_encoder = MLP2(384, dim, dim)
+        self.layer = DecoderLayer(dim, heads, ffn_dim, dropout_rate,
+                                  kv_proj=False)
+        self.mlp_heads = _MLPHeads(dim, num_semcls)
+
+
 def _unfold_outputs(outputs: Dict[str, torch.Tensor], L: int):
     """(B, ..., L·Q, ...) folded outputs → (L, B, ..., Q, ...) stacks."""
     def unfold(name, x):
@@ -351,7 +394,29 @@ def _unfold_outputs(outputs: Dict[str, torch.Tensor], L: int):
 
 
 class PARQDecoder(nn.Module):
-    """Learned reference points + the weight-shared recurrent decoder."""
+    """Learned reference points + the recurrent decoder.
+
+    `share_weights` (the default, MODEL.DECODER.TRANSFORMER.SHARE_WEIGHTS):
+    one iteration's modules run L times. Off: iteration 0 keeps the shared
+    layout's modules and keys, so a reference-layout state_dict fills it
+    (parq_tpu/io/torch_convert.py:227 maps it to ``iteration_0``), and
+    iteration i ≥ 1 owns ``iterations.{i}`` (`_Iteration`); the memory K/V
+    are still projected once, by iteration 0's layer.
+
+    `remat` (TPU.REMAT): each training iteration runs under a
+    non-reentrant `torch.utils.checkpoint`, the twin of
+    ``nn.remat(DecoderIteration)`` (decoder.py:763): its activations are
+    dropped after the forward and recomputed in the backward, which
+    launches B1 and B2-train again. The recompute draws the same dropout:
+    every mask comes from a fresh generator seeded by (iteration, salt)
+    (`DropoutDraws`), and the flash kernels' keep bits are a counter hash
+    of (seed, b·H + h, row, kv column) with the seed fixed by (iteration,
+    salt) too, so no state is consumed that a second draw would see
+    changed.
+
+    The two-phase fold runs only with shared weights, no remat and L > 1
+    (decoder.py:714-722); otherwise training is sequential: B1 and
+    B2-train forward per iteration, B3 and B4 backward per iteration."""
 
     def __init__(self, dim: int = 1024, heads: int = 4, ffn_dim: int = 768,
                  num_layers: int = 8, num_queries: int = 256,
@@ -360,16 +425,23 @@ class PARQDecoder(nn.Module):
                                              5.25),
                  feat_size: Tuple[int, int] = (80, 60),
                  mean_size=None, dropout_rate: float = 0.1,
-                 batched_grad: bool = True):
+                 batched_grad: bool = True, share_weights: bool = True,
+                 remat: bool = False):
         super().__init__()
         self.num_layers = num_layers
         self.scale = tuple(float(s) for s in scale)
         self.feat_size = tuple(feat_size)
         self.dropout_rate = dropout_rate
         self.batched_grad = batched_grad
+        self.share_weights, self.remat = share_weights, remat
         self.refpoint = nn.Embedding(num_queries, 3)
         self.parq_module = _ParqModule(dim, heads, ffn_dim, dropout_rate)
         self.mlp_heads = _MLPHeads(dim, num_semcls)
+        if not share_weights:
+            self.iterations = nn.ModuleDict({
+                str(i): _Iteration(dim, heads, ffn_dim, dropout_rate,
+                                   num_semcls)
+                for i in range(1, num_layers)})
         if mean_size is None:
             mean_size = torch.ones(num_semcls + 1, 3)
         self.register_buffer("mean_size",
@@ -384,6 +456,14 @@ class PARQDecoder(nn.Module):
         data-parallel batch, for the dropout draws."""
         self.sp_group, self.data_index, self.data = sp_group, data_index, data
 
+    def iteration_modules(self, l: int):
+        """(position encoder, decoder layer, heads) of iteration `l`."""
+        if self.share_weights or l == 0:
+            dec = self.parq_module.decoder
+            return dec.position_encoder, dec.layers[0], self.mlp_heads
+        it = self.iterations[str(l)]
+        return it.position_encoder, it.layer, it.mlp_heads
+
     def _iteration(self, ref, memory_hw, kv, camera, T_camera_local,
                    drops=None, groups=(0,), refs_only=False,
                    precomputed=None, diff_rows=None):
@@ -395,9 +475,8 @@ class PARQDecoder(nn.Module):
         query rows have differentiable coordinates."""
         s = self.scale
         G = len(groups)
-        dec = self.parq_module.decoder
-        heads = self.mlp_heads
-        pos_feat = dec.position_encoder(pos2posemb3d(ref))
+        position_encoder, layer, heads = self.iteration_modules(groups[0])
+        pos_feat = position_encoder(pos2posemb3d(ref))
         query_metric = denormalize_points(ref, s)
         args = (memory_hw, query_metric, T_camera_local, camera,
                 self.feat_size)
@@ -410,9 +489,9 @@ class PARQDecoder(nn.Module):
         else:
             pix, center_im, center_valid = pixel_aligned_features_kernel(
                 *args)
-        out = dec.layers[0](pix.to(pos_feat.dtype), kv, pos_feat, drops,
-                            groups, aux_out=refs_only,
-                            precomputed=precomputed, sp_group=self.sp_group)
+        out = layer(pix.to(pos_feat.dtype), kv, pos_feat, drops, groups,
+                    aux_out=refs_only, precomputed=precomputed,
+                    sp_group=self.sp_group)
         if refs_only:
             out, attn_aux = out
 
@@ -439,6 +518,13 @@ class PARQDecoder(nn.Module):
             "center_im": center_im,
             "center_valid": center_valid,
         }
+
+    def folds(self, deterministic: bool) -> bool:
+        """Whether a forward takes the two-phase fold (decoder.py:714-722):
+        training, with shared weights, no remat and L > 1."""
+        return (not deterministic and self.batched_grad
+                and self.share_weights and not self.remat
+                and self.num_layers > 1)
 
     def forward(self, memory_hw: torch.Tensor, camera: Camera,
                 T_camera_pseudoCam: Pose, T_world_pseudoCam: Pose,
@@ -475,10 +561,15 @@ class PARQDecoder(nn.Module):
             drops = DropoutDraws(self.dropout_rate, L, memory_hw.device,
                                  generator, b_offset=self.data_index * B,
                                  global_batch=self.data * B)
-        if deterministic or not self.batched_grad or L == 1:
+        if not self.folds(deterministic):
+            remat = self.remat and torch.is_grad_enabled()
             outs = []
             for l in range(L):
-                ref, o = self._iteration(ref, *inputs, drops, (l,))
+                if remat:
+                    ref, o = checkpoint(self._iteration, ref, *inputs, drops,
+                                        (l,), use_reentrant=False)
+                else:
+                    ref, o = self._iteration(ref, *inputs, drops, (l,))
                 outs.append(o)
             return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 

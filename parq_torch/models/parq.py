@@ -67,7 +67,8 @@ class PARQModel(nn.Module):
             cfg.dec_dim, cfg.dec_heads, cfg.dec_ffn_dim, cfg.dec_layers,
             cfg.num_queries, cfg.num_semcls, cfg.scale, cfg.feat_size,
             mean_size=torch.from_numpy(mean), dropout_rate=cfg.dropout_rate,
-            batched_grad=cfg.batched_grad)
+            batched_grad=cfg.batched_grad, share_weights=cfg.share_weights,
+            remat=cfg.remat)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 deterministic: bool = True,

@@ -1,7 +1,19 @@
 """HTTP serving of the port's eval forward (twin of scripts/serve.py).
 
-    python -m parq_torch.serve [--batch 8] [--dtype bfloat16] [--port 8000]
-        [--host 127.0.0.1] [--seed 0] [--device cuda]
+    python -m parq_torch.serve --cfg configs/eval.yaml \
+        [--CHECKPOINT_PATH ckpt] [--artifact parq_fwd.pt2] [--batch 8] \
+        [--host 127.0.0.1] [--port 8000] [KEY VALUE ...]
+
+The model is the one the config describes (`ServeConfig.from_cfg`: the
+score threshold is MODEL.DECODER.CONF_THRESH, the track box TRACK_SCALE).
+CHECKPOINT_PATH (the flag shadows the config key, as in eval.py) loads
+strictly through `train.checkpoint.load_pretrained`: a port checkpoint or
+a state_dict in the reference layout; without one the weights are random
+from SEED and a warning says so. `--artifact` serves a program exported by
+`python -m parq_torch.export` with the engine's weights loaded into it;
+otherwise the live model serves. Both run the same custom ops for B1 and
+B2. It runs on CUDA and raises without a GPU unless TPU.PLATFORM (or env
+PARQ_PLATFORM) is "cpu".
 
 Protocol (input shapes are fixed by the served batch — GET /spec):
 
@@ -15,54 +27,76 @@ Protocol (input shapes are fixed by the served batch — GET /spec):
                     Response: {"detections": [[{label, score, center, size,
                     corners_world}, ...] per sample]}.
 
-Weights are random, drawn from the seed (there is no checkpoint in the
-repository). Requests serialize around the forward; the HTTP layer is
-threaded so health checks never wait behind an inference.
+Requests serialize around the forward; the HTTP layer is threaded so
+health checks never wait behind an inference.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import io
 import json
 import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
 
 import numpy as np
 import torch
 
 from . import resolve_device
-from .config import ModelConfig, ServeConfig
-from .data.synthetic import make_batch, to_device
+from .config import ServeConfig
+from .data.synthetic import to_device
 from .evals.parse_pred import parse_pred
-from .models import BATCH_KEYS, build_model
+from .export import example_batch, load_artifact, load_model
+from .models import BATCH_KEYS
 
 
 class Engine:
-    """Owns the model; turns request arrays into detections."""
+    """Owns the model (or an exported program with the model's weights);
+    turns request arrays into detections. `checkpoint` loads strictly into
+    the model; `artifact` is a saved `torch.export` program
+    (parq_torch.export), which then serves with the model's weights."""
 
     def __init__(self, cfg: ServeConfig = ServeConfig(), batch_size: int = 1,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0,
+                 checkpoint: Optional[str] = None,
+                 artifact: Optional[str] = None):
         self.cfg = cfg
         self.batch_size = batch_size
         self.device = resolve_device(device)
         self._lock = threading.Lock()
-        self.model = build_model(cfg.model, seed=seed, device=self.device)
-        example = make_batch(list(range(batch_size)),
-                             image_size=cfg.model.image_size,
-                             num_views=cfg.model.num_views)
-        self.spec = {k: {"shape": list(example[k].shape), "dtype": "float32"}
-                     for k in BATCH_KEYS}
-        self.example = to_device(example, BATCH_KEYS, self.device)
+        # with an artifact the model only holds the weights: keep it on
+        # the host
+        self.model = load_model(cfg.model, seed, checkpoint,
+                                "cpu" if artifact else self.device)
+        self._call = self.model
+        if artifact:
+            self._call = load_artifact(artifact)
+            self._call.load_state_dict(self.model.state_dict(), strict=True)
+        self.example = example_batch(cfg.model, batch_size, self.device)
+        self.spec = {k: {"shape": list(v.shape), "dtype": "float32"}
+                     for k, v in self.example.items()}
         self.forward(self.example)      # warm-up (kernel build, cuDNN plans)
-        logging.info("engine ready: batch=%d device=%s dtype=%s",
-                     batch_size, self.device, cfg.model.compute_dtype)
+        logging.info("engine ready: batch=%d device=%s dtype=%s%s",
+                     batch_size, self.device, cfg.model.compute_dtype,
+                     f" artifact={artifact}" if artifact else "")
+
+    @classmethod
+    def from_cfg(cls, cfg, checkpoint: Optional[str] = None,
+                 artifact: Optional[str] = None, batch_size: int = 1,
+                 device=None) -> "Engine":
+        """The engine of a config tree (scripts/serve.py's `Engine`): its
+        model and host settings, weights from SEED or `checkpoint`, on
+        the device TPU.PLATFORM names unless `device` is given."""
+        from .config import platform_device
+        return cls(ServeConfig.from_cfg(cfg), batch_size,
+                   device or platform_device(cfg), int(cfg.SEED),
+                   checkpoint, artifact)
 
     @torch.inference_mode()
     def forward(self, batch):
         """Tensor batch on the engine's device → per-iteration outputs."""
-        out = self.model(batch)
+        out = self._call(batch)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return out
@@ -100,7 +134,7 @@ class Engine:
         last = {k: v[-1] for k, v in outputs.items()}
         cfg = self.cfg
         host = parse_pred(last, batch["T_world_local"], cfg.track_scale,
-                          cfg.model.num_semcls)
+                          cfg.model.num_semcls, enable_nms=cfg.enable_nms)
         center = last["center_unnormalized"].float().cpu().numpy()
         size = last["size_unnormalized"].float().cpu().numpy()
         dets = []
@@ -169,21 +203,31 @@ def build_server(engine: Engine, host: str = "127.0.0.1",
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="parq_torch serving runtime")
+    ap.add_argument("--cfg", required=True)
+    ap.add_argument("--artifact", default=None,
+                    help=".pt2 from python -m parq_torch.export (default: "
+                         "the live model)")
+    ap.add_argument("--CHECKPOINT_PATH", type=str, default=None)
     ap.add_argument("--batch", type=int, default=1)
-    ap.add_argument("--dtype", default="float32",
-                    choices=("float32", "bfloat16"))
-    ap.add_argument("--device", default=None, help="default: cuda")
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("opts", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    logging.warning("serving RANDOM-INIT weights from seed %d; detections "
-                    "carry no meaning", args.seed)
-    cfg = ServeConfig(model=dataclasses.replace(
-        ModelConfig(), compute_dtype=args.dtype))
-    server = build_server(Engine(cfg, args.batch, args.device, args.seed),
-                          args.host, args.port)
+    from .config import get_cfg, update_config
+    cfg = get_cfg()
+    update_config(cfg, args)
+    if args.CHECKPOINT_PATH:    # the flag shadows the config key
+        cfg.defrost()
+        cfg.CHECKPOINT_PATH = args.CHECKPOINT_PATH
+        cfg.freeze()
+    ckpt = cfg.CHECKPOINT_PATH or None
+    if not ckpt:
+        logging.warning("no CHECKPOINT_PATH (flag or config): serving "
+                        "RANDOM-INIT weights from SEED %d; detections carry "
+                        "no meaning", int(cfg.SEED))
+    server = build_server(Engine.from_cfg(cfg, ckpt, args.artifact,
+                                          args.batch), args.host, args.port)
     print(f"serving on http://{server.server_address[0]}:"
           f"{server.server_address[1]}  (POST /detect, GET /spec /healthz)")
     try:

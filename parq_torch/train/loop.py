@@ -7,6 +7,8 @@ eval.py.
 Scalars go to ``<workdir>/metrics.jsonl``, one JSON object a line with its
 stage and step. Image logging (LOG_IMAGES) needs the vis utilities, which
 are not ported yet: it is logged and skipped.
+TPU.DEBUG_NANS stops at the first NaN with FloatingPointError, as the JAX
+package's jax_debug_nans does (train/debug_nans.py).
 
 Several ranks (torch.distributed, under torchrun): the Trainer lays them out
 as a (data, model) grid (parallel/mesh.py), as the JAX Trainer builds its
@@ -25,6 +27,7 @@ checkpoint.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -44,6 +47,7 @@ from ..losses import parse_targets
 from ..models import BATCH_KEYS, build_model
 from ..parallel.mesh import make_mesh, replicated
 from ..parallel.multihost import is_main_process, rank_device
+from . import debug_nans
 from .checkpoint import CheckpointManager, load_pretrained, restore_state
 from .schedule import lr_schedule_from_cfg
 from .train_step import LossConfig, eval_step, make_optimizer, train_step
@@ -129,7 +133,7 @@ class Trainer:
         check_card_support(cfg)
         if cfg.DEMO or cfg.MODEL.DECODER.FOR_VIS:
             raise ValueError("DEMO / MODEL.DECODER.FOR_VIS need the vis "
-                             "utilities, not ported yet (ROADMAP §A9)")
+                             "utilities, not ported yet (ROADMAP §A6)")
         self.cfg = cfg
         self.device = rank_device(resolve_device(platform_device(cfg)))
         if self.device.index is not None:   # a rank's own card
@@ -200,6 +204,10 @@ class Trainer:
         if cfg.PRETRAINED_PATH:
             logger.info("warm start from %s", cfg.PRETRAINED_PATH)
             load_pretrained(self.model, cfg.PRETRAINED_PATH, strict=False)
+        if cfg.TPU.DEBUG_NANS:
+            logger.info("DEBUG_NANS: stopping at the first NaN (forward "
+                        "hooks, autograd anomaly mode)")
+            debug_nans.enable(self.model)
 
     def restore_if_available(self, data_loader=None) -> bool:
         """Full resume from the latest checkpoint: weights, AdamW, step
@@ -245,6 +253,8 @@ class Trainer:
                    else int(len(train_loader) * limit_train))
         prof_steps = int(cfg.TPU.PROFILE_STEPS)
         profiler = None
+        nan_ctx = (debug_nans.nan_errors if cfg.TPU.DEBUG_NANS
+                   else contextlib.nullcontext)
         k = self.accumulate
         overfit_cache = []
         while train_loader.epoch < cfg.TRAINER.MAX_EPOCHS:
@@ -274,12 +284,13 @@ class Trainer:
                 for group in self.optimizer.param_groups:
                     group["lr"] = lr
                 self.model.train()
-                metrics = train_step(
-                    self.model, self.optimizer, dev_batch, gen,
-                    self.loss_cfg, float(cfg.TRAINER.GRADIENT_CLIP_VAL),
-                    accumulate=k, micro_step=self.global_step % k,
-                    data_group=self.mesh.data_group,
-                    model_group=self.mesh.model_group)
+                with nan_ctx():
+                    metrics = train_step(
+                        self.model, self.optimizer, dev_batch, gen,
+                        self.loss_cfg, float(cfg.TRAINER.GRADIENT_CLIP_VAL),
+                        accumulate=k, micro_step=self.global_step % k,
+                        data_group=self.mesh.data_group,
+                        model_group=self.mesh.model_group)
                 t0 = self._tick("train_step", t0)
                 self.global_step += 1
                 if prof_steps and self.global_step == 2:

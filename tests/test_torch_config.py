@@ -134,10 +134,24 @@ def _set(cfg, path, value):
     (("MODEL", "DECODER", "TRANSFORMER", "SHARE_WEIGHTS"), False),
 ])
 def test_card_support_rejects_levers_not_ported(path, value):
+    """No lever is refused any more: REMAT, DEBUG_NANS and SHARE_WEIGHTS
+    are honoured, PARAM_DTYPE (read nowhere by the JAX package) is a
+    logged lever. Each is accepted on configs/scaled_recurrence.yaml,
+    which sets REMAT itself, and the model config follows the first and
+    the last."""
     cfg = get_cfg()
+    update_config(cfg, argparse.Namespace(
+        cfg=os.path.join(ROOT, "configs", "scaled_recurrence.yaml"),
+        opts=None))
+    assert cfg.TPU.REMAT is True
+    cfg.defrost()
     _set(cfg, path, value)
-    with pytest.raises(ValueError, match="not supported by parq_torch"):
-        check_card_support(cfg)
+    check_card_support(cfg)
+    check_config(cfg)
+    mcfg = ModelConfig.from_cfg(cfg)
+    assert mcfg.remat is True and mcfg.num_views == 6
+    assert mcfg.dec_layers == 16
+    assert mcfg.share_weights == (path[-1] != "SHARE_WEIGHTS")
 
 
 @pytest.mark.parametrize("settings", [

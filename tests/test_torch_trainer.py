@@ -20,6 +20,7 @@ and the JAX package where it has the same function:
 - a resume continues at the saved step with equal weights.
 """
 import argparse
+import importlib
 import json
 import os
 
@@ -325,3 +326,84 @@ def test_device_batch_keys_and_dtypes():
     assert sorted(batch) == sorted(DEVICE_KEYS)
     assert batch["sym"].dtype == torch.int32
     assert batch["rgb_img"].dtype == torch.float32
+
+
+# ------------------------------------------------------ scaled recurrence --
+SCALED_TINY = (
+    "MODEL.BACKBONE2D.RESNET_NAME", "resnet18",
+    "MODEL.TOKENIZER.OUT_CHANNELS", "64", "MODEL.TOKENIZER.NUM_SAMPLES", "8",
+    "MODEL.DECODER.DIM_IN", "64", "MODEL.DECODER.NUM_QUERIES", "16",
+    "MODEL.DECODER.TRANSFORMER.DEC_DIM", "64",
+    "MODEL.DECODER.TRANSFORMER.DEC_FFN_DIM", "32",
+    "MODEL.DECODER.TRANSFORMER.DEC_LAYERS", "4",
+    "MODEL.DECODER.TRANSFORMER.QUERIES_DIM", "64",
+    "MODEL.DECODER.TRANSFORMER.DROPOUT_RATE", "0.0",
+    "TPU.IMAGE_SIZE", "[64, 48]", "TPU.FPN_CHANNELS", "16",
+    "TRAINER.MAX_EPOCHS", "1", "TRAINER.VAL_CHECK_INTERVAL", "1.0",
+    "TRAINER.LOG_EVERY_N_STEPS", "1", "CALLBACK.SAVE_TOP_K", "1",
+    "DATAMODULE.DATA_PATH", "synthetic")
+
+
+def test_scaled_recurrence_cli_matches_jax_trainer(tmp_path, monkeypatch):
+    """configs/scaled_recurrence.yaml (6 views, REMAT on) cut to tiny widths
+    and 4 iterations, 2 synthetic snippets of B=1 (the YAML plus the two
+    SYNTHETIC_*_SIZE keys smoke.yaml uses), dropout 0, through the train
+    twin's CLI on the CPU: its 2 losses equal the JAX Trainer's steps on
+    the same weights, batches and matcher draws to 2e-4
+    (tests/test_torch_train_model.py's loss bound). The port's matcher
+    draws are replaced by JAX's, derived as the JAX Trainer derives its
+    step keys (loop.py:311, 350; train_step.py:91)."""
+    from parq_tpu.train.loop import Trainer as JTrainer
+    from parq_tpu.train.loop import to_device_batch as j_device_batch
+    from parq_torch.cli.train import main
+    port_step = importlib.import_module("parq_torch.train.train_step")
+
+    with open(os.path.join(ROOT, "configs", "scaled_recurrence.yaml")) as f:
+        text = f.read()
+    yaml = tmp_path / "scaled_tiny.yaml"
+    yaml.write_text(text.replace("DATAMODULE:\n", "DATAMODULE:\n"
+                                 "  SYNTHETIC_TRAIN_SIZE: 2\n"
+                                 "  SYNTHETIC_VAL_SIZE: 2\n"))
+    opts = ["TPU.PLATFORM", "cpu", "LOG_PATH", str(tmp_path), *SCALED_TINY]
+    args = argparse.Namespace(cfg=str(yaml), opts=opts)
+    cfg, jcfg = get_cfg(), j_get_cfg()
+    update_config(cfg, args)
+    j_update_config(jcfg, args)
+    mcfg = ModelConfig.from_cfg(cfg)
+    assert mcfg.remat and mcfg.num_views == 6 and mcfg.dec_layers == 4
+    assert jcfg.TPU.REMAT
+
+    train_loader, _ = build_loaders(cfg)
+    batches = [b for b in train_loader]
+    assert len(batches) == 2 and batches[0]["rgb_img"].shape[:2] == (1, 6)
+
+    # the JAX Trainer's two steps on the port's initial weights
+    jtrainer = JTrainer(jcfg, workdir=str(tmp_path / "jax"))
+    jtrainer.setup_state(batches[0], steps_per_epoch=len(batches))
+    port = build_model(mcfg, seed=int(cfg.SEED), device="cpu")
+    tree = convert_parq_checkpoint(
+        {k: v.numpy() for k, v in port.state_dict().items()}, num_heads=4)
+    state = jtrainer.state.replace(
+        params=_merge(jtrainer.state.params, tree["params"]),
+        frozen=_merge(jtrainer.state.frozen, tree["frozen"]))
+    rng = jax.random.key(int(jcfg.SEED) + 17, impl=jcfg.TPU.RNG_IMPL)
+    L, Q = mcfg.dec_layers, mcfg.num_queries
+    j_losses, uniforms = [], []
+    for batch in batches:
+        rng, sub = jax.random.split(rng)
+        _, k_match = jax.random.split(sub)
+        K = batch["obbs_padded"].shape[1]
+        uniforms.append(torch.from_numpy(np.array(jax.vmap(
+            lambda k: jax.random.uniform(k, (Q, K)))(
+            jax.random.split(k_match, L)))))
+        state, m = jtrainer.train_step_fn(state, j_device_batch(batch), sub)
+        j_losses.append(float(m["total_loss"]))
+
+    draws = iter(uniforms)
+    monkeypatch.setattr(port_step, "_global_uniforms",
+                        lambda *a: next(draws))
+    trainer, _ = main(["--cfg", str(yaml), *opts])
+    rows = read_metrics(trainer)
+    assert [r["step"] for r in rows] == [1, 2]
+    np.testing.assert_allclose([r["total_loss"] for r in rows], j_losses,
+                               atol=2e-4, rtol=0)
