@@ -31,46 +31,64 @@ Phases, each printed on its own line; any failure exits non-zero:
                kernel at the shapes of configs/scaled_recurrence.yaml (B=1,
                T=6, Q=256, N=28,800) with the same tolerances: B1 (bf16
                and f32), B2, B2-train, B3 and B4 (bf16);
-  4. serve   — an Engine at the release config (ResNet50, 3 x 320x240,
+  4. matcher — kernel M1 (the matcher's batched LAP) against its plain
+               version on the CPU, bit for bit, on the release problem (64
+               pairs of 100 target rows x 256 queries, n_rows mixed over
+               0, 1, 3, 20, 100) and on the K > Q problem (64 query rows x
+               100 targets, the invalid targets' columns flat: ties); the
+               totals against scipy to 1e-5 relative; `match_batch` at
+               release shapes under sync debug mode "error" (no sync, one
+               M1 launch) equal to the CPU's on the same inputs; M1's ms
+               (release and scaled, the batch's own targets and 100, each
+               problem also held against the plain version bit for bit)
+               beside the host route it replaced (copy, scipy, copy back);
+  5. native  — parq_torch/native built with g++ (seconds); iou3d_matrix
+               against the Python iou3d on 200 rotated boxes, each against
+               itself included (1), to 1e-9; nms3d equal to greedy_nms,
+               tied scores included; F1's
+               IoU matrix and association both ways, timed;
+  6. serve   — an Engine at the release config (ResNet50, 3 x 320x240,
                L=8, Q=256, dim 1024, B=8, bf16) answers 3 /detect requests
                over HTTP; every output is finite, each serving kernel's
                launch count rose by exactly 8 per request, no training
                kernel launched, and the token memory the sampler reads came
                in bf16;
-  5. parity  — the same seeded weights and batch, B=1 f32, TF32 off: the
+  7. parity  — the same seeded weights and batch, B=1 f32, TF32 off: the
                card's forward (kernels) against the port's CPU forward
                (plain versions), atol 2e-3, every output of the last
                iteration;
-  6. train   — the release model at B=8 in bf16, dropout 0.1, AdamW at lr
+  8. train   — the release model at B=8 in bf16, dropout 0.1, AdamW at lr
                1e-4 with a global-norm clip of 1.0, 5 steps through
                parq_torch.train's train_step on synthetic batches: finite
                losses and gradient norms, the parameters moved, the token
                memory in bf16 (so B1 and B4 ran their bf16 forms), and per
-               step B1 8, B2-train 8, B3 1 and B4 1 launches; step ms from
-               CUDA events after a warm-up step, and a profile of one step;
-  7. train-parity — B=1, f32, TF32 off, dropout 0, release widths at L=2:
+               step B1 8, B2-train 8, B3 1, B4 1 and M1 1 launches; step ms
+               from CUDA events after a warm-up step; the synchronizing
+               operations of one step and their sites (none in the
+               matcher); a profile of one step;
+  9. train-parity — B=1, f32, TF32 off, dropout 0, release widths at L=2:
                the card's gradients (kernels) against the CPU's (plain
                versions), parameter by parameter, by norm; `unshared`:
                the same with SHARE_WEIGHTS False (each iteration its own
                modules);
-  8. times   — forward ms at B=8 bf16 (CUDA events over 10 forwards, the
+ 10. times   — forward ms at B=8 bf16 (CUDA events over 10 forwards, the
                host's work included) and a profile of one forward; per
                kernel device ms (CUDA-graph replay; the library's dropout
                and backward calls by CUDA events), launches on its path,
                bound ms, plain ms and the library call's ms; B4 on its
                three distributions; B3's two passes from one profiled
                launch;
-  9. sp      — two ranks on the one card over gloo (NCCL refuses two ranks
+ 11. sp      — two ranks on the one card over gloo (NCCL refuses two ranks
                on one GPU), MESH_MODEL 2, the memory tokens sharded: an f32
                step (TF32 off, L=2, B=1, dropout 0) against the one-process
                step on the same weights (loss rtol 1e-5, each gradient
                ‖Δ‖ ≤ 2e-4·max(‖g‖, 1) + 1e-3 on each rank);
                3 release bf16 steps at B=8, L=8, dropout 0.1 (gradients
                averaged over the model group), per rank per step B1 8,
-               split B2-train 8, split B3 1 and B4 1 launches, parameters
-               equal on both ranks after them; one SP validation forward,
+               split B2-train 8, split B3 1, B4 1 and M1 1 launches,
+               parameters equal on both ranks after them; one SP validation forward,
                B1 8 and fused B2-LSE 8 per rank;
- 10. ddp     — two ranks (MESH_DATA 2), dropout 0.1, the one-process step's
+ 12. ddp     — two ranks (MESH_DATA 2), dropout 0.1, the one-process step's
                seeds: an f32 gate (TF32 off, L=2, one row a rank) to the sp
                gate's tolerance; one release bf16 step, 4 rows a rank,
                against the one-process B=8 step, to twice the distance of
@@ -78,30 +96,31 @@ Phases, each printed on its own line; any failure exits non-zero:
                rows instead of 8 round otherwise and break the matcher's
                near ties otherwise); then the record of the split, legacy
                and v2 forms;
-  11. fit     — `python -m parq_torch.cli.train` in-process on
+ 13. fit     — `python -m parq_torch.cli.train` in-process on
                configs/train.yaml at release width in bf16 on synthetic
                snippets (32 to train, 8 to validate: the loaders' defaults
                for DATA_PATH synthetic), B=8, 2 epochs, validation every
                half epoch: 8 steps, 4 validations and the final one on the
                best checkpoint. Finite losses; per step B1 8, B2-train 8, B3
-               1 and B4 1 launches, per validation B1 and B2 8 each and
-               nothing else; the token memory in bf16; checkpoints written;
+               1, B4 1 and M1 1 launches, per validation B1 and B2 8 each,
+               M1 1 (the validation loss) and nothing else; the token memory in bf16; checkpoints written;
                then a Trainer with MAX_EPOCHS 3 resumes at step 8 with the
                saved weights bit for bit and takes the next epoch. ms per
                step (CUDA events) and validation's share of the fit;
- 12. eval    — `python -m parq_torch.cli.eval` on configs/eval.yaml with
+ 14. eval    — `python -m parq_torch.cli.eval` on configs/eval.yaml with
                the fit's best checkpoint, synthetic snippets, bf16: the
                metric lines 0.25_f1, 0.5_f1, 0.7_f1 and mean_latency_s are
-               printed; per snippet B1 and B2 8 launches each;
- 13. serve-ckpt — an Engine from configs/eval.yaml with the fit's best
+               printed; per snippet B1 and B2 8 launches each and M1 1;
+ 15. serve-ckpt — an Engine from configs/eval.yaml with the fit's best
                checkpoint loaded strictly, then with the same weights as a
                reference-layout state_dict: their detections on a snippet
                equal those of the eval twin's model, at CONF_THRESH and at
                0 (1e-4);
- 14. scaled  — configs/scaled_recurrence.yaml at full width (6 x 320x240,
+ 16. scaled  — configs/scaled_recurrence.yaml at full width (6 x 320x240,
                L=16, Q=256, 28,800 tokens, B=1, bf16, dropout 0.1): 3
                train steps with REMAT on (per step B1 32, B2-train 32, B3
-               16, B4 16: the recompute launches B1 and B2-train again),
+               16, B4 16, M1 1: the recompute launches B1 and B2-train
+               again),
                3 with REMAT off on the same sequential path (16 each) and 3
                on the fold the config takes without REMAT (B1 16, B2-train
                16, B3 1, B4 1); step ms (CUDA events) and peak memory of
@@ -110,13 +129,13 @@ Phases, each printed on its own line; any failure exits non-zero:
                forward (B1 16, B2 16); the train twin on the config (2
                synthetic snippets, 2 steps, 2 validations); then the
                kernels' record at these shapes;
- 15. export  — the release eval forward through parq_torch.export on the
+ 17. export  — the release eval forward through parq_torch.export on the
                card, saved and loaded: f32 at B=1 against the live model to
                1e-5 (TF32 off), bf16 at B=8 to 1e-2; the bf16 artifact
                behind the server answers 3 /detect requests, B1 and B2
                rising by exactly 8 a request (the program runs the
                kernels through their custom ops), nothing else launching;
- 16. fit-sp  — the train twin under `torchrun --standalone --nproc_per_node
+ 18. fit-sp  — the train twin under `torchrun --standalone --nproc_per_node
                2` (gloo), TPU.SEQ_PARALLEL True, MESH_MODEL 2, B=8: 2 steps,
                1 validation, the checkpoint written once (by rank 0), the
                final validation; every rank must exit 0. The files of the
@@ -889,6 +908,7 @@ def phase_train(cfg, steps=5):
     train_step: finite metrics, moving parameters, the training kernels'
     launches per step, step time, and one profiled step."""
     from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.tools.syncs import count_syncs
     from parq_torch.train.__main__ import build, synthetic_batches
     from parq_torch.train.train_step import train_step
     B = 8
@@ -930,6 +950,14 @@ def phase_train(cfg, steps=5):
     moved = sum(float((p.detach() - b).abs().sum())
                 for p, b in zip(net.parameters(), before))
     check(moved > 0 and math.isfinite(moved), f"parameters moved {moved}")
+    n_sync, sites = count_syncs(
+        lambda: train_step(net, opt, batches[0], gen))
+    check(not any("hungarian" in k or "kernels/lap" in k for k in sites),
+          f"train: the matcher synchronizes with the host: {dict(sites)}")
+    phase("train", f"synchronizing operations in one bare train_step (sync "
+          f"debug mode 'warn': reads back to the host, and blocking copies "
+          f"of host values to the card): {n_sync}, at {dict(sites)}; none "
+          "in the matcher")
     step_ms = sum(ms[1:]) / len(ms[1:])
     phase("train", f"{steps} steps, launches {counts} (per step: {want}); "
           f"sum |Δparams| {moved:.4g}; step {step_ms:.2f} ms from CUDA "
@@ -991,6 +1019,305 @@ def phase_train_parity(cfg, label="train-parity"):
           f"{losses['cpu']['total_loss']:.6f}; {len(grads['cpu'])} "
           f"gradients, worst ‖Δ‖/‖g‖ {worst:.2e} ({worst_name}); limit "
           f"5e-3·‖g‖ + 1e-6·‖G‖, ‖G‖ = {total:.4g}")
+
+
+# ------------------------------------------------------------ the matcher --
+def matcher_inputs(cfg, batch, L, gen, n_valid=None):
+    """The matcher's inputs for the L·B (iteration, sample) pairs of a
+    train batch: random logits and reference points, the batch's own
+    targets repeated over the L iterations or, with `n_valid`, that many
+    valid targets a pair at random centers. Queries 1-5 copy query 0 next
+    to target 0: exact ties, the same on either device."""
+    from parq_torch.geometry import Obb3D, Pose
+    from parq_torch.losses import parse_targets
+    t = parse_targets(Obb3D(batch["obbs_padded"]),
+                      Pose(batch["T_world_local"]), batch.get("sym"))
+    labels, center, valid = (x.repeat((L,) + (1,) * (x.dim() - 1))
+                             for x in (t.labels, t.center, t.valid))
+    LB, K = labels.shape
+    Q = cfg.num_queries
+    if n_valid is not None:
+        valid = (torch.arange(K, device="cuda") < n_valid)[None].expand(
+            LB, K).contiguous()
+        center = torch.rand((LB, K, 3), device="cuda", generator=gen) * 4 - 2
+        labels = torch.where(valid, torch.randint(
+            0, cfg.num_semcls, (LB, K), device="cuda", generator=gen), -1)
+    logits = torch.randn((LB, Q, cfg.num_semcls + 1), device="cuda",
+                         generator=gen)
+    coord = torch.rand((LB, Q, 3), device="cuda", generator=gen) * 4 - 2
+    coord[:, :6] = center[:, :1] + 0.05
+    logits[:, 1:6] = logits[:, :1]
+    return logits, coord, labels, center, valid
+
+
+def host_lap_route(cost, valid):
+    """The matcher's assignment before M1: the (LB, Q, K) costs to the
+    host, one scipy LAP a pair over its valid targets, the (LB, Q)
+    assignment back to the card."""
+    from scipy.optimize import linear_sum_assignment
+    cost_np, valid_np = cost.cpu().numpy(), valid.cpu().numpy()
+    LB, Q, K = cost_np.shape
+    hung = np.full((LB, Q), -1, np.int64)
+    for i in range(LB):
+        idx = np.flatnonzero(valid_np[i])
+        if idx.size == 0:
+            continue
+        if K <= Q:
+            rows, cols = linear_sum_assignment(cost_np[i][:, idx].T)
+            hung[i, cols] = idx[rows]
+        else:
+            rows, cols = linear_sum_assignment(cost_np[i][:, idx])
+            hung[i, rows] = idx[cols]
+    return torch.from_numpy(hung).to(cost.device)
+
+
+def lap_bound_ms(rows, n_rows, row_reads):
+    """M1's bound: the bytes its searches must move (each cost row a
+    search step reads, n_rows, the output) over the card's memory rate.
+    The search is a chain of dependent steps, bound by latency: the bound
+    says how far from bytes it is, not what it could reach."""
+    P, R, C = rows.shape
+    nbytes = row_reads * C * 4 + n_rows.numel() * 4 + P * R * 4
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def check_lap(label, rows, n_rows):
+    """M1 on the card against its plain version on the CPU on the same
+    costs, bit for bit; the totals against scipy's to 1e-5 relative.
+    Returns the largest |col4row - plain| (0, or the check fails) and the
+    number of cost rows the searches read."""
+    from scipy.optimize import linear_sum_assignment
+    from parq_torch.kernels.lap import solve_lap, solve_lap_plain
+    got = solve_lap(rows, n_rows).cpu()
+    stats = {}
+    want = solve_lap_plain(rows.cpu(), n_rows.cpu(), stats)
+    diff = (got.long() - want.long()).abs().max().item()
+    check(diff == 0, f"matcher: M1 {label} differs from the plain version "
+          f"({int((got != want).sum())} rows)")
+    cost = rows.double().cpu().numpy()
+    worst = 0.0
+    for p, n in enumerate(n_rows.tolist()):
+        if n == 0:
+            continue
+        r, c = linear_sum_assignment(cost[p, :n])
+        want_total = cost[p, r, c].sum()
+        total = cost[p, np.arange(n), got[p, :n].numpy()].sum()
+        worst = max(worst, abs(total - want_total) / max(abs(want_total),
+                                                          1e-30))
+    check(worst <= 1e-5, f"matcher: M1 {label} totals off scipy's by "
+          f"{worst:.2e} (limit 1e-5 relative)")
+    phase("matcher", f"M1 {label} {tuple(rows.shape)}, n_rows "
+          f"{sorted(set(n_rows.tolist()))}: col4row equal to the plain "
+          f"version bit for bit; totals vs scipy worst {worst:.2e} relative "
+          f"(limit 1e-5); {stats['row_reads']} cost rows read")
+    return diff, stats["row_reads"]
+
+
+def phase_matcher(cfg, scaled_cfg, smi_line):
+    """Kernel M1 against its plain version (release shapes with mixed
+    n_rows, the tied K > Q shape), `match_batch` on the card under sync
+    debug mode "error" against the CPU, and M1's times beside the host
+    route it replaced; each timed problem is also held against the plain
+    version. Returns the kernels' record rows of M1 (release and
+    scaled), launches to be filled from the main path."""
+    from parq_torch.kernels.lap import solve_lap, solve_lap_plain
+    from parq_torch.ops.hungarian import lap_problem, match_batch, match_cost
+    from parq_torch.train.__main__ import TRAIN_KEYS, synthetic_batches
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    L, B, K = cfg.dec_layers, 8, 100
+    batch = synthetic_batches(cfg, B, "cuda")[0]
+
+    # M1 vs plain: the release problem (rows = targets), n_rows mixed
+    inputs = matcher_inputs(cfg, batch, L, gen, n_valid=K)
+    cost, _ = match_cost(*inputs[:4])
+    rows, _ = lap_problem(cost, inputs[4])
+    mix = torch.tensor([0, 1, 3, 20, 100], dtype=torch.int32)
+    n_mix = mix[torch.arange(L * B) % 5].cuda()
+    rows = torch.where(torch.arange(K, device="cuda")[None, :, None]
+                       < n_mix[:, None, None], rows, 1e4).contiguous()
+    errs = {"mix": check_lap("release, rows = targets", rows, n_mix)[0]}
+    # K > Q, match_batch's other branch: rows = 64 queries, 100 targets,
+    # the invalid targets' columns flat 1e4 (many exact ties)
+    tq = cfg.num_queries
+    small = dataclasses.replace(cfg, num_queries=64)
+    inputs = matcher_inputs(small, batch, L, gen, n_valid=K)
+    valid_q = torch.arange(K, device="cuda")[None] < torch.randint(
+        1, K, (L * B, 1), device="cuda", generator=gen)
+    cost, _ = match_cost(*inputs[:4])
+    rows_q, n_q = lap_problem(cost, valid_q)
+    check(rows_q.shape == (L * B, 64, K), "matcher: K > Q problem shape")
+    errs["K > Q"] = check_lap("K > Q, rows = queries, flat columns", rows_q,
+                              n_q)[0]
+
+    # match_batch at release shapes, no sync, equal to the CPU's
+    inputs = matcher_inputs(cfg, batch, L, gen)
+    u = torch.rand((L * B, tq, K), device="cuda", generator=gen)
+    before = solve_lap.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = match_batch(*inputs, uniforms=u)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(solve_lap.launches == before + 1,
+          f"matcher: match_batch launched M1 {solve_lap.launches - before} "
+          "times, want 1")
+    want = match_batch(*(x.cpu() for x in inputs), uniforms=u.cpu())
+    for name, a, b in zip(got._fields, got, want):
+        check(torch.equal(a.cpu(), b), f"matcher: match_batch {name} on the "
+              "card differs from the CPU's")
+    n_valid = inputs[4].sum(1)
+    phase("matcher", f"match_batch at LB={L * B}, Q={tq}, K={K} (the release "
+          f"batch's targets, n_valid {int(n_valid.min())}-"
+          f"{int(n_valid.max())}) under sync debug mode 'error': no sync, M1 "
+          f"launched once; assign, is_hungarian and punish_mask equal to the "
+          f"CPU's ({int(got.is_hungarian.sum())} LAP matches, "
+          f"{int((got.assign >= 0).sum())} matches in all)")
+
+    # times: M1 at the batch's own n_valid and at 100, release and scaled
+    scaled_batch = scaled_batches(scaled_cfg, [0], TRAIN_KEYS)[0]
+    cases = {}
+    for label, mcfg, b, nv in (
+            ("release", cfg, batch, None), ("release, n_valid 100", cfg,
+                                             batch, K),
+            ("scaled", scaled_cfg, scaled_batch, None),
+            ("scaled, n_valid 100", scaled_cfg, scaled_batch, K)):
+        inp = matcher_inputs(mcfg, b, mcfg.dec_layers, gen, n_valid=nv)
+        cost, _ = match_cost(*inp[:4])
+        rows, n_rows = lap_problem(cost, inp[4])
+        errs[label], row_reads = check_lap(label, rows, n_rows)
+        ms = device_ms(lambda: solve_lap(rows, n_rows), 50)
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host_lap_route(cost, inp[4])
+            torch.cuda.synchronize()
+            host.append(1e3 * (time.perf_counter() - t0))
+        cases[label] = dict(
+            ms=ms, host_ms=sorted(host)[2], rows=rows, n_rows=n_rows,
+            bound=lap_bound_ms(rows, n_rows, row_reads))
+        phase("matcher", f"[{smi_line}] M1 {label}: P={rows.shape[0]} "
+              f"{rows.shape[1]}x{rows.shape[2]}, n_rows "
+              f"{int(n_rows.min())}-{int(n_rows.max())}: {ms:.4f} ms/launch "
+              f"(CUDA-graph replay), bound {cases[label]['bound']:.5f} ms "
+              f"({row_reads} cost rows read); the host route it "
+              f"replaced (copy, {rows.shape[0]} scipy LAPs, copy back) "
+              f"{cases[label]['host_ms']:.3f} ms wall, median of 5")
+    rel = cases["release"]
+    plain_ms = cuda_ms(lambda: solve_lap_plain(rel["rows"], rel["n_rows"]), 2)
+    sc = cases["scaled"]
+    sc_plain_ms = cuda_ms(lambda: solve_lap_plain(sc["rows"], sc["n_rows"]),
+                          2)
+    phase("matcher", f"match_batch on the card at release shapes: "
+          f"{cuda_ms(lambda: match_batch(*inputs, uniforms=u), 10):.3f} ms "
+          f"(CUDA events, host included); the plain LAP on the card "
+          f"{plain_ms:.2f} ms")
+    # bound_ms counts bytes; the search is a chain of dependent block
+    # reductions, so latency is what limits it (`limited_by`)
+    common = dict(route="cuda", source="parq_torch/csrc/lap.cu",
+                  replaces="parq_tpu/ops/hungarian.py:24", bound_by="bytes",
+                  limited_by="latency", library_ms=None)
+    rel_err = max(errs[k] for k in ("mix", "K > Q", "release",
+                                    "release, n_valid 100"))
+    sc_err = max(errs["scaled"], errs["scaled, n_valid 100"])
+    return [dict(common, name="lap_solve", ms=rel["ms"], plain_ms=plain_ms,
+                 bound_ms=rel["bound"], max_abs_err=rel_err,
+                 host_route_ms=rel["host_ms"]),
+            dict(common, name="lap_solve_scaled", ms=sc["ms"],
+                 plain_ms=sc_plain_ms, bound_ms=sc["bound"],
+                 max_abs_err=sc_err, host_route_ms=sc["host_ms"])]
+
+
+# ---------------------------------------------------- the host C++ library --
+def rotated_box(rng, spread):
+    """(8, 3) reference-ordered world corners of a random yaw-rotated box
+    (evals.iou3d.to_odam takes them to the IoU's convention)."""
+    from parq_torch.evals.iou3d import ROTX90
+    signs = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+                      [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]])
+    size = rng.rand(3) + 0.4
+    a = rng.uniform(-np.pi, np.pi)
+    roty = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                     [-np.sin(a), 0.0, np.cos(a)]])
+    c = -size / 2.0 + signs * size
+    return c @ (ROTX90 @ roty).T + rng.randn(3) * spread
+
+
+def phase_native(smi_line):
+    """parq_torch/native: the g++ build; iou3d_matrix against the Python
+    iou3d on 200 random rotated boxes, each against itself included (1),
+    nms3d against greedy_nms; the F1 association and IoU matrix both ways
+    on 200 predictions x 50 GTs."""
+    from parq_torch import native
+    from parq_torch.evals import f1
+    from parq_torch.evals.iou3d import iou3d, to_odam
+    from parq_torch.evals.nms import greedy_nms
+    t0 = time.perf_counter()
+    path = native.build()
+    build_s = time.perf_counter() - t0
+    phase("native", f"{os.path.relpath(path, ROOT)} built with g++ "
+          f"{' '.join(native.GXX_FLAGS)} in {build_s:.2f} s")
+    rng = np.random.RandomState(0)
+    boxes = np.stack([to_odam(rotated_box(rng, 0.4)) for _ in range(200)])
+    got = native.iou3d_matrix(boxes, boxes)
+    want = np.array([[iou3d(a, b)[0] for b in boxes] for a in boxes])
+    err = float(np.abs(got - want).max())
+    self_err = float(np.abs(np.diag(got) - 1.0).max())
+    check(err <= 1e-9 and self_err <= 1e-9, f"native: iou3d_matrix off the "
+          f"Python iou3d by {err}, self-IoU off 1 by {self_err} (1e-9)")
+    kept = []
+    for same, thresh, ties in ((False, 0.1, False), (True, 0.25, False),
+                               (False, 0.1, True)):
+        lo = rng.uniform(-1.0, 1.0, (300, 3))
+        score = (rng.randint(0, 4, (300, 1)) / 4.0 if ties
+                 else rng.permutation(300)[:, None] / 300.0)
+        nms_rows = np.concatenate([lo, lo + rng.uniform(0.2, 1.0, (300, 3)),
+                                   score, rng.randint(0, 9, (300, 1))],
+                                  axis=1)
+        keep = native.nms3d(nms_rows, thresh, same)
+        want_keep = np.zeros(300, bool)
+        want_keep[greedy_nms(nms_rows, thresh, same)] = True
+        check(np.array_equal(keep, want_keep), f"native: nms3d (same class "
+              f"{same}, tied scores {ties}) differs from greedy_nms")
+        kept.append(int(keep.sum()))
+    phase("native", f"iou3d_matrix vs the Python iou3d on 200 rotated boxes "
+          f"(40,000 pairs, each box against itself included): max abs err "
+          f"{err:.2e}, self-IoU within {self_err:.2e} of 1 (limit 1e-9); "
+          f"nms3d equal to greedy_nms on 300 boxes, distinct scores and "
+          f"scores on 4 levels (kept {kept})")
+
+    def entry(rng):
+        return [int(rng.randint(9)), rotated_box(rng, 1.5),
+                float(rng.rand()), -1]
+    preds = [entry(rng) for _ in range(200)]
+    gts = [entry(rng) for _ in range(50)]
+
+    def python_matrix(a, b):
+        return np.array([[iou3d(x, y)[0] for y in b] for x in a])
+
+    times = {}
+    for way in ("library", "python"):
+        saved = native.iou3d_matrix
+        if way == "python":
+            native.iou3d_matrix = python_matrix
+        try:
+            t0 = time.perf_counter()
+            m = f1._pairwise_iou(preds, gts)
+            t1 = time.perf_counter()
+            matches, _ = f1._associate(preds, gts, 0.1)
+            t2 = time.perf_counter()
+        finally:
+            native.iou3d_matrix = saved
+        times[way] = (1e3 * (t1 - t0), 1e3 * (t2 - t1), m, matches)
+    check(np.abs(times["library"][2] - times["python"][2]).max() <= 1e-6
+          and times["library"][3] == times["python"][3],
+          "native: F1's IoU matrix or association differs between ways")
+    phase("native", f"F1 on the host, 200 predictions x 50 GTs: _pairwise_iou "
+          f"{times['library'][0]:.2f} ms (library) vs "
+          f"{times['python'][0]:.2f} ms (Python iou3d); _associate "
+          f"{times['library'][1]:.2f} vs {times['python'][1]:.2f} ms; "
+          f"the same matrix and matches")
 
 
 def phase_times(cfg, engine, counts, requests, train_counts, errs):
@@ -1258,18 +1585,20 @@ NO_KERNELS = {"pixel_align_sample": 0, "flash_cross_attention_fwd": 0,
               "flash_cross_attention_fwd_train": 0,
               "flash_cross_attention_bwd": 0, "pixel_align_bwd_mem": 0,
               "flash_cross_attention_fwd_train_split": 0,
-              "flash_cross_attention_bwd_split": 0}
+              "flash_cross_attention_bwd_split": 0, "lap_solve": 0}
+# M1 once a train step and once a validation batch (the loss's matcher)
 TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
                      flash_cross_attention_fwd_train=8,
-                     flash_cross_attention_bwd=1, pixel_align_bwd_mem=1)
+                     flash_cross_attention_bwd=1, pixel_align_bwd_mem=1,
+                     lap_solve=1)
 VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
-                   flash_cross_attention_fwd=8)
+                   flash_cross_attention_fwd=8, lap_solve=1)
 # sequence-parallel: per rank, the split forms in training, the fused
 # forward with LSE (the merge needs it) in validation
 SP_TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
                         flash_cross_attention_fwd_train_split=8,
                         flash_cross_attention_bwd_split=1,
-                        pixel_align_bwd_mem=1)
+                        pixel_align_bwd_mem=1, lap_solve=1)
 SP_VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
                       flash_cross_attention_fwd_train=8)
 
@@ -1460,15 +1789,16 @@ EXPORT_DIR = os.path.join(ROOT, "build", "chip_smoke_export")
 SCALED_REMAT_KERNELS = dict(NO_KERNELS, pixel_align_sample=32,
                            flash_cross_attention_fwd_train=32,
                            flash_cross_attention_bwd=16,
-                           pixel_align_bwd_mem=16)
+                           pixel_align_bwd_mem=16, lap_solve=1)
 SCALED_SEQ_KERNELS = dict(NO_KERNELS, pixel_align_sample=16,
                          flash_cross_attention_fwd_train=16,
                          flash_cross_attention_bwd=16,
-                         pixel_align_bwd_mem=16)
+                         pixel_align_bwd_mem=16, lap_solve=1)
 SCALED_FOLD_KERNELS = dict(NO_KERNELS, pixel_align_sample=16,
                           flash_cross_attention_fwd_train=16,
                           flash_cross_attention_bwd=1,
-                          pixel_align_bwd_mem=1)
+                          pixel_align_bwd_mem=1, lap_solve=1)
+# the bare eval forward; a validation batch adds M1 (the loss)
 SCALED_VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=16,
                          flash_cross_attention_fwd=16)
 
@@ -1876,7 +2206,8 @@ def scaled_cli(smi_line):
     check(len(steps) == 2 and len(vals) == 2, f"scaled cli: {len(steps)} "
           f"steps and {len(vals)} validations, want 2 and 1 + the final one")
     check_counts(steps, SCALED_REMAT_KERNELS, "scaled cli step")
-    check_counts(vals, {k: 2 * n for k, n in SCALED_VAL_KERNELS.items()},
+    check_counts(vals, dict({k: 2 * n for k, n in SCALED_VAL_KERNELS.items()},
+                            lap_solve=2),
                  "scaled cli validation (2 snippets)")
     check(all(d == torch.bfloat16 for seen in dtypes for d in seen),
           f"scaled cli: the decoder's memory came as {dtypes}")
@@ -2452,6 +2783,8 @@ def main():
         errs = phase_kernels(cfg)
         scaled_cfg = scaled_model_cfg()
         scaled_errs = scaled_kernels(scaled_cfg)
+        m1_rows = phase_matcher(cfg, scaled_cfg, smi_line)
+        phase_native(smi_line)
         engine, counts, requests = phase_serve(ServeConfig(model=cfg), 8)
         phase_parity(cfg)
         train_counts, _ = phase_train(cfg)
@@ -2460,6 +2793,7 @@ def main():
                            "unshared")
         rows = phase_times(cfg, engine, counts, requests, train_counts,
                            errs)
+        m1_rows[0]["launches"] = train_counts["lap_solve"]
         del engine
         torch.cuda.empty_cache()
         sp_counts = phase_sp(cfg)
@@ -2473,6 +2807,8 @@ def main():
         torch.cuda.empty_cache()
         scaled_counts = phase_scaled(smi_line)
         rows += scaled_rows(scaled_cfg, scaled_errs, scaled_counts)
+        m1_rows[1]["launches"] = scaled_counts["lap_solve"]
+        rows += m1_rows
         phase_export(smi_line)
         phase_fit_sp(smi_line)
     except SmokeFailure as e:

@@ -10,10 +10,10 @@ This is deliberately NOT on-device: the association is order-dependent and
 data-dependent (SURVEY §7.3 #6). With sharded eval, re-serialize per-scene
 streams before feeding `step`.
 
-Port of parq_tpu/evals/f1.py. The JAX package computes the IoU matrices
-with its host C++ library when g++ built it; the port uses the numpy
-`iou3d` of the same formula (the JAX tests hold the two equal). The port's
-copy of that library is a later item (ROADMAP).
+Port of parq_tpu/evals/f1.py. The IoU matrices come from the port's host
+C++ library (`parq_torch.native.iou3d_matrix`, the formula of `iou3d`
+with its clip repair; the tests hold the two to 1e-9), as the JAX package
+takes them from its own.
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ from typing import Dict, List
 import numpy as np
 from scipy.optimize import linear_sum_assignment
 
-from .iou3d import iou3d, to_odam
+from .. import native
+from .iou3d import to_odam
 
 CARE_CLASSES = {
     0: "chair", 1: "table", 2: "cabinet", 3: "trash bin", 4: "bookshelf",
@@ -36,11 +37,7 @@ def _associate(dets: List, trks: List, iou_thresh: float):
     Entries are [cls, corners(8,3), score, trk_id]."""
     if not dets or not trks:
         return [], list(range(len(dets)))
-    iou_matrix = np.zeros((len(dets), len(trks)), np.float32)
-    for d, det in enumerate(dets):
-        det_rot = to_odam(det[1])
-        for t, trk in enumerate(trks):
-            iou_matrix[d, t] = iou3d(det_rot, to_odam(trk[1]))[0]
+    iou_matrix = _pairwise_iou(dets, trks)
     rows, cols = linear_sum_assignment(-iou_matrix)
     matches = [(r, c) for r, c in zip(rows, cols)
                if iou_matrix[r, c] >= iou_thresh]
@@ -58,11 +55,7 @@ def _pairwise_iou(predictions, gts) -> np.ndarray:
         return np.zeros((len(predictions), len(gts)), np.float32)
     a = np.stack([to_odam(p[1]) for p in predictions])
     b = np.stack([to_odam(g[1]) for g in gts])
-    m = np.zeros((len(a), len(b)), np.float32)
-    for i in range(len(a)):
-        for j in range(len(b)):
-            m[i, j] = iou3d(a[i], b[j])[0]
-    return m
+    return native.iou3d_matrix(a, b).astype(np.float32)
 
 
 def match_sequence(total_gts, total_preds, total_tps, predictions, gts,

@@ -1,12 +1,16 @@
 """3D NMS over axis-aligned bounds of box corners (port of
-parq_tpu/evals/nms.py): the host greedy pass in numpy, class-agnostic
-(`nms_3d_faster`, eval) or same-class (`nms_3d_faster_samecls`, vis), and
+parq_tpu/evals/nms.py): the host greedy pass, class-agnostic
+(`nms_3d_faster`, eval) or same-class (`nms_3d_faster_samecls`, vis), in
+the port's host C++ library (`parq_torch.native.nms3d`, as the JAX package
+runs its own) with `greedy_nms` its plain numpy version; and
 `nms_mask_device`, the masked fixed-K O(K²) greedy pass in torch on the
 tensors' device."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import native
 
 
 def corners_to_aabb_rows(pred_corners: np.ndarray, scores: np.ndarray,
@@ -24,14 +28,15 @@ def corners_to_aabb_rows(pred_corners: np.ndarray, scores: np.ndarray,
 def greedy_nms(boxes: np.ndarray, overlap_threshold: float,
                same_class: bool = False) -> list:
     """Score-descending greedy pick over (n, 8) rows; with `same_class`
-    only boxes of the pick's class are suppressed."""
+    only boxes of the pick's class are suppressed. Boxes of equal score go
+    in index order, as in `native.nms3d` and `nms_mask_device`."""
     if len(boxes) == 0:
         return []
     x1, y1, z1, x2, y2, z2 = (boxes[:, i] for i in range(6))
     score = boxes[:, 6]
     cls = boxes[:, 7]
     area = (x2 - x1) * (y2 - y1) * (z2 - z1)
-    order = np.argsort(score)
+    order = np.argsort(-score, kind="stable")[::-1]
     pick = []
     while order.size:
         i = order[-1]
@@ -62,8 +67,7 @@ def run_nms(pred_corners: np.ndarray, labels: np.ndarray,
     mask = np.zeros((B, K), bool)
     for b in range(B):
         fg = np.where(labels[b] != num_semcls)[0]
-        pick = greedy_nms(rows[b, fg], overlap_threshold, same_class=same)
-        mask[b, fg[pick]] = True
+        mask[b, fg[native.nms3d(rows[b, fg], overlap_threshold, same)]] = True
     return mask
 
 

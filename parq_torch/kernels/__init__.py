@@ -7,6 +7,7 @@
 | cross_attention_pallas._bwd_call    | cross_attention.flash_bwd (B3)        |
 | the same two, K and V as two buffers (kv_fused=False) | cross_attention.flash_fwd_lse_kv and flash_bwd_kv |
 | pixel_align_pallas._pallas_sample_bwd_mem | pixel_align.sample_views_bwd_mem (B4) |
+| ops/hungarian.solve_lap (lax loops, no pallas_call) | lap.solve_lap (M1) |
 
 B2 and B3 in bf16 at the release head dim (256) are the Hopper kernels of
 ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (wgmma on TMA-fed
@@ -16,11 +17,15 @@ the SIMT and mma.sync kernels of ``csrc/cross_attention.cu``. B4
 (``csrc/pixel_align_bwd.cu``) is a per-pixel gather: one CTA per 8x8 tile
 of a map lists the query rows that touch the tile and each pixel sums its
 taps in f32 registers in q order and is written once in the memory's
-dtype: no scratch, no atomics, the same bits from run to run.
+dtype: no scratch, no atomics, the same bits from run to run. M1
+(``csrc/lap.cu``) solves the matcher's assignments on the card, one CTA
+per (iteration, sample) pair, in JAX's f32 arithmetic: the train step no
+longer copies its costs to the host.
 
 The CLI twins (``parq_torch/cli``) and the config tree
 (``parq_torch/config``) changed no kernel: `Trainer.fit` launches B1,
-B2-train, B3 and B4 every step and `Trainer.validate` B1 and B2.
+B2-train, B3, B4 and M1 every step and `Trainer.validate` B1, B2 and M1
+(the validation loss runs the matcher).
 
 K and V as two buffers (the natural and legacy layouts, the
 sequence-parallel training path) run the same kernels on other strides,
@@ -38,6 +43,7 @@ step launches all but the eval form of B2.
 from .cross_attention import (flash_bwd, flash_bwd_kv,
                               flash_cross_attention_kv_fused, flash_fwd_lse,
                               flash_fwd_lse_kv)
+from .lap import solve_lap
 from .pixel_align import (pixel_aligned_features_kernel, sample_views,
                           sample_views_bwd_mem)
 
@@ -49,6 +55,7 @@ KERNELS = {
     "pixel_align_bwd_mem": sample_views_bwd_mem,
     "flash_cross_attention_fwd_train_split": flash_fwd_lse_kv,
     "flash_cross_attention_bwd_split": flash_bwd_kv,
+    "lap_solve": solve_lap,
 }
 SERVE_KERNELS = ("pixel_align_sample", "flash_cross_attention_fwd")
 
@@ -66,4 +73,5 @@ __all__ = ["KERNELS", "SERVE_KERNELS", "flash_bwd", "flash_bwd_kv",
            "flash_cross_attention_kv_fused", "flash_fwd_lse",
            "flash_fwd_lse_kv",
            "launch_counts", "pixel_aligned_features_kernel",
-           "reset_launch_counts", "sample_views", "sample_views_bwd_mem"]
+           "reset_launch_counts", "sample_views", "sample_views_bwd_mem",
+           "solve_lap"]

@@ -34,6 +34,7 @@ LIBRARIES = {
     "pixel_align_bwd": ("pixel_align_bwd",),
     "cross_attention": ("cross_attention", "flash_fwd_sm90",
                         "flash_bwd_sm90"),
+    "lap": ("lap",),
 }
 SOURCES = tuple(LIBRARIES)
 CSRC = Path(__file__).resolve().parents[1] / "csrc"

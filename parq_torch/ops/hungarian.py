@@ -7,23 +7,25 @@ also assigned to it, capped at `max_padding` per target by a uniform random
 subset; capped-out queries are left out of the classification loss
 (`punish_mask`).
 
-The JAX package solves the assignment on the device (a Jonker–Volgenant
-loop in `lax`) only to keep the TPU step free of host syncs. Here it runs
-on the host with `scipy.optimize.linear_sum_assignment`, on the valid
-targets only: one transfer of the (LB, Q, K) costs per step. Both branches
-of the JAX matcher are kept: K ≤ Q (targets are the rows) and the
-transposed K > Q (queries are the rows; the JAX package gives invalid
-target columns a flat cost, which solving over the valid columns alone
-matches). The proximity draws are an input: (LB, Q, K) uniforms, or drawn
-from a `torch.Generator`, so the tests can feed the JAX draws.
+The assignment runs on the tensors' device, as the JAX package's does:
+kernel M1 (`kernels.lap.solve_lap`) on the card, its plain version on the
+CPU, both in JAX's f32 arithmetic, so no value of the step goes to the
+host. Both branches of the JAX matcher are kept: K ≤ Q (targets are the
+rows, invalid target rows get a flat cost and are not searched) and the
+transposed K > Q (queries are the rows, invalid target columns get a flat
+cost, matches to them are dropped). The proximity draws are an input:
+(LB, Q, K) uniforms, or drawn from a `torch.Generator`, so the tests can
+feed the JAX draws.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
-from scipy.optimize import linear_sum_assignment
+
+from ..kernels.lap import solve_lap
+
+FLAT_COST = 1e4     # the cost of an invalid target (hungarian.py:182, :205)
 
 
 class MatchResult(NamedTuple):
@@ -34,21 +36,54 @@ class MatchResult(NamedTuple):
     punish_mask: torch.Tensor
 
 
-def _lap_assign(cost: np.ndarray, valid: np.ndarray) -> np.ndarray:
-    """(Q,) target per query from the exact assignment of one pair:
-    cost (Q, K), valid (K,) with valid targets first; −1 if unmatched."""
-    Q, K = cost.shape
-    hung = np.full(Q, -1, np.int64)
-    idx = np.flatnonzero(valid)
-    if idx.size == 0:
-        return hung
-    if K <= Q:   # rows = valid targets, cols = queries
-        rows, cols = linear_sum_assignment(cost[:, idx].T)
-        hung[cols] = idx[rows]
-    else:        # the transposed problem: rows = queries
-        rows, cols = linear_sum_assignment(cost[:, idx])
-        hung[rows] = idx[cols]
-    return hung
+def match_cost(pred_logits: torch.Tensor, coord_pos: torch.Tensor,
+               tgt_labels: torch.Tensor, tgt_center: torch.Tensor,
+               cost_class: float = 2.0, cost_bbox: float = 0.25):
+    """(cost, c_bbox), each (LB, Q, K) f32: ``cost_bbox·L1(ref, center) −
+    cost_class·prob[label]`` and the L1 term alone (hungarian.py:171-176)."""
+    LB, Q, _ = pred_logits.shape
+    K = tgt_labels.shape[1]
+    prob = torch.softmax(pred_logits.float(), dim=-1)
+    labels = tgt_labels.long().clamp(0, prob.shape[-1] - 1)
+    c_class = -torch.gather(prob, 2, labels[:, None, :].expand(LB, Q, K))
+    c_bbox = (coord_pos.float()[:, :, None, :]
+              - tgt_center.float()[:, None, :, :]).abs().sum(-1)
+    return cost_bbox * c_bbox + cost_class * c_class, c_bbox
+
+
+def lap_problem(cost: torch.Tensor, valid: torch.Tensor):
+    """The assignment problems of costs (LB, Q, K) and valid (LB, K), as
+    `solve_lap` takes them: (rows (LB, R, C) contiguous f32, n_rows (LB,)
+    int32). K ≤ Q: rows = targets, invalid ones flat and not searched;
+    K > Q: rows = queries, all searched, invalid target columns flat."""
+    LB, Q, K = cost.shape
+    if K <= Q:
+        rows = torch.where(valid[:, :, None], cost.transpose(1, 2), FLAT_COST)
+        n_rows = valid.sum(dim=1, dtype=torch.int32)
+    else:
+        rows = torch.where(valid[:, None, :], cost, FLAT_COST)
+        n_rows = torch.full((LB,), Q, dtype=torch.int32, device=cost.device)
+    return rows.contiguous(), n_rows
+
+
+def _hungarian_assign(cost: torch.Tensor, valid: torch.Tensor
+                      ) -> torch.Tensor:
+    """(LB, Q) target per query from the exact assignment of each pair:
+    cost (LB, Q, K), valid (LB, K) with valid targets first; −1 if
+    unmatched (hungarian.py:178-212)."""
+    LB, Q, K = cost.shape
+    dev = cost.device
+    col4row = solve_lap(*lap_problem(cost, valid)).long()
+    if K <= Q:
+        # target rows to query slots; unassigned rows (−1) go to the extra
+        # slot Q, which is cut off
+        slot = torch.where(col4row >= 0, col4row, Q)
+        tgt = torch.where(valid, torch.arange(K, device=dev), -1)
+        hung = torch.full((LB, Q + 1), -1, dtype=torch.long, device=dev)
+        return hung.scatter_(1, slot, tgt)[:, :Q]
+    # query rows to targets; a match to an invalid (flat) target is none
+    hit = torch.gather(valid, 1, col4row.clamp(0, K - 1))
+    return torch.where((col4row >= 0) & hit, col4row, -1)
 
 
 @torch.no_grad()
@@ -66,17 +101,9 @@ def match_batch(pred_logits: torch.Tensor, coord_pos: torch.Tensor,
     LB, Q, _ = pred_logits.shape
     K = tgt_labels.shape[1]
     dev = pred_logits.device
-    prob = torch.softmax(pred_logits.float(), dim=-1)
-    labels = tgt_labels.long().clamp(0, prob.shape[-1] - 1)
-    c_class = -torch.gather(prob, 2, labels[:, None, :].expand(LB, Q, K))
-    c_bbox = (coord_pos.float()[:, :, None, :]
-              - tgt_center.float()[:, None, :, :]).abs().sum(-1)  # (LB,Q,K)
-    cost = cost_bbox * c_bbox + cost_class * c_class
-
-    cost_np = cost.cpu().numpy()
-    valid_np = tgt_valid.cpu().numpy()
-    hung = torch.from_numpy(np.stack([
-        _lap_assign(cost_np[i], valid_np[i]) for i in range(LB)])).to(dev)
+    cost, c_bbox = match_cost(pred_logits, coord_pos, tgt_labels, tgt_center,
+                              cost_class, cost_bbox)
+    hung = _hungarian_assign(cost, tgt_valid.bool())
     is_hungarian = hung >= 0
 
     inside = (c_bbox < ratio) & tgt_valid[:, None, :]

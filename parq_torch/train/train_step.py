@@ -14,8 +14,16 @@ chain does:
   out of the optimizer, so it does not decay either: the JAX package hands
   every parameter to optax (train_step.py:43-47), and its frozen backbone
   still shrinks by lr·wd a step. The port diverges here on purpose.
-The clip and the metrics stay on the device: the only host sync of a step
-is the matcher's transfer of its costs.
+The matcher (kernel M1), the clip and the metrics stay on the device.
+What still synchronizes the host with the card in a step
+(chip_smoke.py's [train] phase counts them with sync debug mode "warn"):
+one read back, the dropout seeds the step's generator draws on the card
+(models/decoder.py:115-116, `.tolist()`); and blocking copies of small
+host values to the card, each of which waits for the stream: the rayPE
+bounds (models/ray_pe.py:49-50), each attention call's seed vector
+(kernels/cross_attention.py:160), the box corner signs
+(geometry/obb.py:74), the loss's symmetry angles and mask and its class
+weight (losses/set_loss.py:73, :78, :135).
 
 Data parallelism (`data_group`: the ranks holding the other rows of the
 global batch): each rank's loss is weighted by its share of the matched

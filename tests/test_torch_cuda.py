@@ -432,6 +432,7 @@ def test_trainer_fit_and_resume_on_card(gen, tmp_path):
     assert counts["pixel_align_bwd_mem"] == steps
     assert counts["flash_cross_attention_fwd"] == L      # one validation
     assert counts["pixel_align_sample"] == L * (steps + 1)
+    assert counts["lap_solve"] >= steps + 1     # every step, every val batch
     saved = {k: v.clone() for k, v in trainer.model.state_dict().items()}
 
     cfg2 = cfg_for(2)
@@ -443,3 +444,89 @@ def test_trainer_fit_and_resume_on_card(gen, tmp_path):
         assert torch.equal(again.model.state_dict()[k], v), k
     again.fit(loader2, val2)
     assert again.global_step == 4
+
+
+def _lap_costs(gen, P, R, C, n_valid):
+    """The matcher's two problem shapes: K <= Q, rows past n_valid flat
+    1e4; K > Q (rows = queries), the columns of invalid targets flat."""
+    cost = torch.rand((P, R, C), device="cuda", generator=gen) * 3 - 2
+    cost = torch.where(torch.arange(R, device="cuda")[None, :, None]
+                       < n_valid[:, None, None], cost, 1e4)
+    return cost.contiguous()
+
+
+@pytest.mark.parametrize("P,R,C", [(64, 100, 256), (16, 100, 256),
+                                   (5, 7, 7), (3, 20, 300)])
+def test_lap_kernel_equals_plain(gen, P, R, C):
+    """M1 against its plain version on the same costs: col4row equal bit
+    for bit (the same f32 arithmetic, the first index wins a tie)."""
+    from parq_torch.kernels.lap import solve_lap, solve_lap_plain
+    choices = torch.tensor([0, 1, 3, min(20, R), R], dtype=torch.int32)
+    n_rows = choices[torch.arange(P) % 5].to("cuda")
+    cost = _lap_costs(gen, P, R, C, n_rows)
+    before = solve_lap.launches
+    got = solve_lap(cost, n_rows)
+    torch.cuda.synchronize()
+    assert solve_lap.launches == before + 1
+    want = solve_lap_plain(cost.cpu(), n_rows.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+def test_lap_kernel_on_tied_transposed_problem(gen):
+    """The K > Q branch at Q = 64, K = 100: all rows searched, the columns
+    of 60 invalid targets flat 1e4 (many exact ties)."""
+    from parq_torch.kernels.lap import solve_lap, solve_lap_plain
+    P, R, C = 8, 64, 100
+    cost = torch.rand((P, R, C), device="cuda", generator=gen)
+    cost[:, :, 40:] = 1e4
+    cost[:, :, 1] = cost[:, :, 0]
+    n_rows = torch.full((P,), R, dtype=torch.int32, device="cuda")
+    got = solve_lap(cost.contiguous(), n_rows)
+    assert torch.equal(got.cpu(), solve_lap_plain(cost.cpu(), n_rows.cpu()))
+
+
+def test_match_batch_on_the_card_syncs_nothing(gen):
+    """`match_batch` at release shapes under sync debug mode "error": no
+    device-to-host transfer; its results equal the CPU's."""
+    from parq_torch.ops.hungarian import match_batch
+    LB, Q, K = 64, 256, 100
+    logits = torch.randn((LB, Q, 10), device="cuda", generator=gen)
+    coord = torch.rand((LB, Q, 3), device="cuda", generator=gen) * 4 - 2
+    center = torch.rand((LB, K, 3), device="cuda", generator=gen) * 4 - 2
+    # queries 1-5 copy query 0 (exact ties on either device), near target 0
+    coord[:, :6] = center[:, :1] + 0.05
+    logits[:, 1:6] = logits[:, :1]
+    valid = torch.arange(K, device="cuda")[None] < torch.randint(
+        0, 30, (LB, 1), device="cuda", generator=gen)
+    labels = torch.where(valid, torch.randint(0, 9, (LB, K), device="cuda",
+                                              generator=gen), -1)
+    u = torch.rand((LB, Q, K), device="cuda", generator=gen)
+    args = (logits, coord, labels, center, valid)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = match_batch(*args, uniforms=u)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = match_batch(*(a.cpu() for a in args), uniforms=u.cpu())
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def _read_back(x):
+    return x.sum().item()                      # the one sync, this line
+
+
+def test_count_syncs_names_the_callers_line(gen):
+    """`tools/syncs.count_syncs` counts a read back and names the innermost
+    frame under `port` that made it, never its own frame."""
+    import inspect
+    import os
+    from parq_torch.tools.syncs import count_syncs
+    x = torch.ones(4, device="cuda")
+    here = os.path.dirname(os.path.abspath(__file__))
+    n, sites = count_syncs(lambda: _read_back(x), port=here)
+    line = inspect.getsourcelines(_read_back)[1] + 1
+    assert n == 1 and dict(sites) == {f"tests/test_torch_cuda.py:{line}": 1}
+    n, sites = count_syncs(lambda: _read_back(x))
+    assert n == 1 and not any("syncs.py" in k for k in sites)
