@@ -96,6 +96,21 @@ Phases, each printed on its own line; any failure exits non-zero:
                rows instead of 8 round otherwise and break the matcher's
                near ties otherwise); then the record of the split, legacy
                and v2 forms;
+ 12b. tp     — tensor parallelism, two ranks on the one card over gloo,
+               model 2 at release width (2 of 4 self-attention heads and
+               384 of 768 FFN columns a rank; the cross-attention whole on
+               each rank, as the JAX rule leaves it): an f32 gate (TF32
+               off, L=2, B=2, dropout 0.1, the one-process step's seeds):
+               loss and grad_norm rtol 1e-5, each clipped gradient in the
+               reference layout to the sp gate's limit, the updated
+               parameters where Adam's first step is well posed to
+               1e-3·lr; 3 bf16 release steps at B=8 (per rank per step B1
+               8, B2-train 8, B3 1, B4 1, M1 1; ms by CUDA events, no
+               scaling figure: the ranks share the SMs; peak memory); the
+               TP checkpoint loaded strictly into one process, its forward
+               equal to the ranks' (1e-4 of max(1, max |want|)); then
+               `dryrun_multichip(4)`: 4 ranks on the card, a (2, 2) grid,
+               its OK line;
  13. fit     — `python -m parq_torch.cli.train` in-process on
                configs/train.yaml at release width in bf16 on synthetic
                snippets (32 to train, 8 to validate: the loaders' defaults
@@ -111,6 +126,13 @@ Phases, each printed on its own line; any failure exits non-zero:
                the fit's best checkpoint, synthetic snippets, bf16: the
                metric lines 0.25_f1, 0.5_f1, 0.7_f1 and mean_latency_s are
                printed; per snippet B1 and B2 8 launches each and M1 1;
+ 14b. vis    — Trainer.validate(for_vis=True) at release width, bf16, on
+               2 synthetic snippets: one PNG a batch, each read back as
+               (720, 320, 3), B1 8, B2 8 and M1 1 launches a batch; one
+               log_images call (the prediction and GT overlays, the feature
+               map's PCA): its host ms, the GT overlay's box pixels present;
+               the eval twin with MODEL.DECODER.FOR_VIS True writes its 8
+               PNGs into demo_vis/ (under build/);
  15. serve-ckpt — an Engine from configs/eval.yaml with the fit's best
                checkpoint loaded strictly, then with the same weights as a
                reference-layout state_dict: their detections on a snippet
@@ -139,8 +161,8 @@ Phases, each printed on its own line; any failure exits non-zero:
                2` (gloo), TPU.SEQ_PARALLEL True, MESH_MODEL 2, B=8: 2 steps,
                1 validation, the checkpoint written once (by rank 0), the
                final validation; every rank must exit 0. The files of the
-               CLI, scaled, export and fit-sp phases under build/ are
-               deleted at the end.
+               CLI, scaled, export, fit-sp, tp and vis phases under build/
+               are deleted at the end.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the parq_torch
 package beside this file, it exits non-zero and prints no result.
@@ -2756,6 +2778,260 @@ def phase_fit_sp(smi_line):
     shutil.rmtree(work, ignore_errors=True)
 
 
+# ------------------------------------------------ tensor parallelism --
+TP_DIR = os.path.join(ROOT, "build", "chip_smoke_tp")
+TP_LR = 1e-4
+
+
+def _tp_step(cfg, mesh, batch):
+    """One train_step of the model from seed 0, the step's generator
+    seeded 1 (mesh None: one process): the model, its optimizer, the
+    metrics, and the clipped gradients and updated parameters in the
+    reference layout."""
+    from parq_torch.models import build_model
+    from parq_torch.parallel.tensor_parallel import gathered, shard_model_
+    from parq_torch.train.train_step import make_optimizer, train_step
+    model = build_model(cfg, seed=0, device="cuda").train()
+    if mesh is not None:
+        shard_model_(model, mesh)
+    opt = make_optimizer(model, lr=TP_LR)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    m = train_step(model, opt, batch, gen,
+                   model_group=None if mesh is None else mesh.model_group)
+    torch.cuda.synchronize()
+    grads = gathered(model, {n: p.grad for n, p in model.named_parameters()})
+    params = gathered(model, {n: p.detach() for n, p in
+                              model.named_parameters()})
+    return (model, opt, {k: float(v) for k, v in m.items()},
+            {n: g.float().cpu() for n, g in grads.items()},
+            {n: p.float().cpu() for n, p in params.items()})
+
+
+def _tp_rank(rank, world, cfg, B, steps):
+    """A rank of the tp phase: the f32 gate's TP step (rank 0 also takes
+    the one-process step), its checkpoint and eval forward; then `steps`
+    bf16 release steps with their launch counts, CUDA-event ms and peak
+    memory."""
+    import torch.distributed as dist
+    from parq_torch.data.synthetic import make_batch, to_device
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.models import BATCH_KEYS, build_model
+    from parq_torch.parallel.mesh import make_mesh
+    from parq_torch.parallel.tensor_parallel import shard_model_
+    from parq_torch.train.__main__ import TRAIN_KEYS
+    from parq_torch.train.checkpoint import CheckpointManager
+    from parq_torch.train.train_step import make_optimizer, train_step
+    mesh = make_mesh(data=1, model=world)
+    f32 = _f32_gate_cfg(cfg, cfg.dropout_rate)
+    raw = make_batch([0, 1], image_size=cfg.image_size)
+    batch = to_device(raw, TRAIN_KEYS, "cuda")
+    model, opt, *out_f32 = _tp_step(f32, mesh, batch)
+    out = {"f32": out_f32}
+    CheckpointManager(TP_DIR, save_top_k=1).save(1, model, opt)
+    with torch.no_grad():
+        o = model.eval()(to_device(raw, BATCH_KEYS, "cuda"))
+    out["fwd"] = {k: v.float().cpu() for k, v in o.items()}
+    del model, opt
+    if rank == 0:
+        out["f32_one"] = _tp_step(f32, None, batch)[2:]
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.reset_peak_memory_stats()
+    model = shard_model_(build_model(cfg, seed=0, device="cuda").train(),
+                         mesh)
+    opt = make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    counts, ms, losses = [], [], []
+    for step in range(steps):
+        batch = to_device(make_batch(list(range(step * B, (step + 1) * B)),
+                                     image_size=cfg.image_size),
+                          TRAIN_KEYS, "cuda")
+        dist.barrier()
+        reset_launch_counts()
+        t = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t[0].record()
+        m = train_step(model, opt, batch, gen, model_group=mesh.model_group)
+        t[1].record()
+        torch.cuda.synchronize()
+        counts.append(launch_counts())
+        ms.append(t[0].elapsed_time(t[1]))
+        losses.append((float(m["total_loss"]), float(m["grad_norm"])))
+    layer = model.box3d_decoder.parq_module.decoder.layers[0]
+    out["bf16"] = (counts, ms, losses,
+                   torch.cuda.max_memory_allocated() / 2 ** 30,
+                   (layer.self_attn.in_proj_weight.shape[0] // 3
+                    // (cfg.dec_dim // cfg.dec_heads),
+                    layer.linear1.weight.shape[0]))
+    return out
+
+
+def _adam_step_gap(params, params1, grads, grads1):
+    """The updated parameters' largest gap where Adam's first step is well
+    posed, less the f32 rounding of the parameter (1e-6·|p|); and the
+    largest gap anywhere. The first step is lr·g/(|g| + eps), eps 1e-8: a
+    gradient error Δg moves it by about lr·eps·|Δg|/|g|², at most
+    1e-3·lr where |g| > max(10·|Δg|, 1e-6) ("well posed"); elsewhere it
+    can take either sign, up to lr."""
+    posed_gap, any_gap = 0.0, 0.0
+    for n, p1 in params1.items():
+        g1 = grads1[n]
+        posed = g1.abs() > torch.clamp(10 * (grads[n] - g1).abs(), min=1e-6)
+        diff = (params[n] - p1).abs()
+        excess = torch.where(posed, diff - 1e-6 * p1.abs(), 0.0)
+        posed_gap = max(posed_gap, float(excess.max()))
+        any_gap = max(any_gap, float(diff.max()))
+    return posed_gap, any_gap
+
+
+def phase_tp(cfg, smi_line, B=8, steps=3):
+    """Tensor parallelism, two ranks on the one card (gloo), model 2 at
+    release width: the f32 gate, the bf16 steps, the TP checkpoint in one
+    process, and the dryrun_multichip twin on 4 ranks."""
+    from parq_torch.data.synthetic import make_batch, to_device
+    from parq_torch.models import BATCH_KEYS, build_model
+    from parq_torch.parallel import dryrun_multichip
+    from parq_torch.train.checkpoint import load_pretrained
+    t0 = time.perf_counter()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    outs = run_ranks(_tp_rank, 2, cfg, B, steps)
+    m1, grads1, params1 = outs[0]["f32_one"]
+    for r, o in enumerate(outs):
+        m, grads, params = o["f32"]
+        rel = abs(m["total_loss"] - m1["total_loss"]) / abs(m1["total_loss"])
+        rel_n = abs(m["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+        worst, name = _compare_grads(grads, grads1, 2e-4, 1e-3)
+        posed, anyg = _adam_step_gap(params, params1, grads, grads1)
+        phase("tp", f"rank {r}: f32 gate (TF32 off, L=2, B=2, dropout "
+              f"{cfg.dropout_rate}, lr {TP_LR}) TP step vs one process: loss "
+              f"{m['total_loss']:.7f} vs {m1['total_loss']:.7f} (rel "
+              f"{rel:.2e}, limit 1e-5), grad_norm {m['grad_norm']:.6f} vs "
+              f"{m1['grad_norm']:.6f} (rel {rel_n:.2e}, limit 1e-5); "
+              f"{len(grads)} clipped gradients in the reference layout, "
+              f"worst {worst:.3f} of the limit 2e-4·max(‖g‖, 1) + 1e-3 "
+              f"({name}); updated parameters where Adam's step is well posed "
+              f"off by {posed:.2e} beyond 1e-6·|p| (limit 1e-3·lr = "
+              f"{1e-3 * TP_LR:.0e}), anywhere {anyg:.2e} (limit 2·lr)")
+        check(rel <= 1e-5 and rel_n <= 1e-5 and worst <= 1.0
+              and posed <= 1e-3 * TP_LR and anyg <= 2 * TP_LR + 1e-6,
+              f"tp f32 rank {r}: loss rel {rel}, grad_norm rel {rel_n}, "
+              f"gradient {worst} of its limit, parameters {posed} / {anyg}")
+    for r, o in enumerate(outs):
+        counts, ms, losses, peak, local = o["bf16"]
+        for i, c in enumerate(counts):
+            check(c == TRAIN_KERNELS, f"tp rank {r} step {i}: launches {c}, "
+                  f"want {TRAIN_KERNELS}")
+        check(all(math.isfinite(a) and math.isfinite(b) for a, b in losses),
+              f"tp rank {r}: losses {losses}")
+        phase("tp", f"[{smi_line}] rank {r}: {steps} bf16 steps at B={B}, "
+              f"L={cfg.dec_layers}, dim {cfg.dec_dim}, {local[0]} of "
+              f"{cfg.dec_heads} self-attention heads and {local[1]} of "
+              f"{cfg.dec_ffn_dim} FFN columns a rank: step ms "
+              f"{[round(x, 2) for x in ms]} (CUDA events; the two ranks "
+              f"share the one card's SMs, so this is no scaling figure); "
+              f"launches per step {counts[-1]}; losses/grad norms {losses}; "
+              f"peak memory {peak:.2f} GB")
+    # the TP checkpoint, written in the reference layout, in one process
+    raw = make_batch([0, 1], image_size=cfg.image_size)
+    one = build_model(_f32_gate_cfg(cfg, cfg.dropout_rate), seed=3,
+                      device="cuda")
+    load_pretrained(one, os.path.join(TP_DIR, "step_1.pt"), strict=True)
+    with torch.no_grad():
+        want = one(to_device(raw, BATCH_KEYS, "cuda"))
+    gap = _max_gap(outs[0]["fwd"], {k: v.float().cpu() for k, v in
+                                    want.items()})
+    phase("tp", f"TP checkpoint (gathered, written by rank 0) loaded "
+          f"strictly into one process: its f32 forward vs the TP ranks' at "
+          f"B=2, max |Δ| / max(1, max |want|) {gap:.2e} (limit 1e-4)")
+    check(gap <= 1e-4, f"tp checkpoint: forward off by {gap}")
+    del one
+    torch.cuda.empty_cache()
+    text = dryrun_multichip(4, "cuda")
+    first = text.splitlines()[0]
+    check(first.startswith("dryrun_multichip(4): mesh={'data': 2, 'model': "
+                           "2} loss=") and first.endswith(
+                               "OK (+SP attention exact)"),
+          f"tp: dryrun line {first!r}")
+    phase("tp", f"wall of the phase {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+
+
+# ------------------------------------------------------------------ vis --
+VIS_DIR = os.path.join(ROOT, "build", "chip_smoke_vis")
+
+
+def phase_vis(smi_line):
+    """The vis utilities on the card's host: Trainer.validate(for_vis) at
+    release width, one log_images call, and the eval twin with FOR_VIS."""
+    from parq_torch.cli import eval as cli_eval
+    from parq_torch.data import SnippetLoader, SyntheticDataset
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.train.loop import Trainer, to_device_batch
+    from parq_torch.utils import vis
+    shutil.rmtree(VIS_DIR, ignore_errors=True)
+    cfg = config_tree("eval.yaml", "MODEL.DECODER.FOR_VIS", "True",
+                      "LOG_IMAGES", "True", "LOG_PATH", VIS_DIR, "NAME",
+                      "vis")
+    trainer = Trainer(cfg)
+    trainer.setup_state(steps_per_epoch=1)
+    ds = SyntheticDataset(num_snippets=2, image_size=tuple(cfg.TPU.IMAGE_SIZE),
+                          seed=1000)
+    loader = SnippetLoader(ds, 1, shuffle=False, drop_last=False)
+    out_dir = os.path.join(VIS_DIR, "validate_vis")
+    reset_launch_counts()
+    trainer.validate(loader, for_vis=True, vis_dir=out_dir)
+    counts = launch_counts()
+    want = {k: 2 * v for k, v in VAL_KERNELS.items()}
+    check(counts == want, f"vis: launches {counts}, want {want}")
+    pngs = sorted(os.listdir(out_dir))
+    W, H = cfg.TPU.IMAGE_SIZE
+    shapes = {vis.read_png(os.path.join(out_dir, p)).shape for p in pngs}
+    check(len(pngs) == 2 and shapes == {(3 * H, W, 3)},
+          f"vis: FOR_VIS PNGs {pngs} of shapes {shapes}")
+    phase("vis", f"Trainer.validate(for_vis=True) at release width, bf16, 2 "
+          f"synthetic snippets: {pngs}, each {(3 * H, W, 3)}; launches "
+          f"{counts}")
+
+    batch = next(iter(loader))
+    dev = to_device_batch(batch, trainer.device)
+    with torch.no_grad():
+        outputs, feat = trainer.model(dev, deterministic=True,
+                                      return_feature_map=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    paths = trainer.log_images(batch, outputs, "val", feat)
+    host_ms = 1e3 * (time.perf_counter() - t)
+    gt = vis.read_png(paths[1])
+    plain = vis.to_uint8(np.concatenate([vis.normalize_img(v) for v in
+                                         batch["rgb_img"][0]], axis=0))
+    drawn = int((gt != plain).any(-1).sum())
+    check(drawn > 100, f"vis: the GT overlay has {drawn} box pixels")
+    phase("vis", f"[{smi_line}] one log_images call (parse_pred with NMS, "
+          f"the prediction and GT overlays, the feature map's PCA, 3 PNGs): "
+          f"{host_ms:.1f} ms on the host; {[os.path.basename(p) for p in paths]}"
+          f"; the GT overlay's box pixels {drawn}")
+
+    out = io.StringIO()
+    reset_launch_counts()
+    with contextlib.chdir(VIS_DIR), contextlib.redirect_stdout(out):
+        cli_eval.main(["--cfg", os.path.join(ROOT, "configs", "eval.yaml"),
+                       *cli_opts("vis-eval", "MODEL.DECODER.FOR_VIS",
+                                 "True", "DATAMODULE.BATCH_SIZE", "1",
+                                 "CHECKPOINT_PATH", "None")])
+    counts = launch_counts()
+    pngs = sorted(os.listdir(os.path.join(VIS_DIR, "demo_vis")))
+    check(len(pngs) == 8 and counts == {k: 8 * v for k, v in
+                                        VAL_KERNELS.items()},
+          f"vis: the eval twin wrote {pngs}, launches {counts}")
+    phase("vis", f"python -m parq_torch.cli.eval on eval.yaml (random "
+          f"weights from SEED), MODEL.DECODER.FOR_VIS True, DATA_PATH "
+          f"synthetic: {len(pngs)} "
+          f"PNGs in demo_vis/ (e.g. {pngs[0]}); launches {counts}")
+    del trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(VIS_DIR, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2798,10 +3074,12 @@ def main():
         torch.cuda.empty_cache()
         sp_counts = phase_sp(cfg)
         phase_ddp(cfg)
+        phase_tp(cfg, smi_line)
         rows += split_rows(cfg, errs, sp_counts)
         torch.cuda.empty_cache()
         ckpt, _ = phase_fit(smi_line)
         phase_eval(ckpt, smi_line)
+        phase_vis(smi_line)
         phase_serve_ckpt(ckpt)
         shutil.rmtree(CLI_DIR, ignore_errors=True)
         torch.cuda.empty_cache()

@@ -15,6 +15,13 @@ TPU.PLATFORM (or env PARQ_PLATFORM) is "cpu". Under torchrun (RANK,
 WORLD_SIZE, LOCAL_RANK) every rank evaluates the whole set on its
 cuda:LOCAL_RANK, the model group sharding the memory tokens under
 TPU.SEQ_PARALLEL, and rank 0 prints the metrics.
+
+`--DEMO` evaluates the ARKit demo fragments (DemoDataset: DATA_PATH and
+VAL_ANNOTATION_PATH name the images and fragments.pkl; PIL opens the
+JPEGs). With MODEL.DECODER.FOR_VIS True (configs/demo.yaml sets it) every
+snippet's wireframe overlay is written to
+``demo_vis/{scene}_{snippet}_rgb_imgwithbox.png``, as eval.py does; on
+synthetic snippets too.
 """
 from __future__ import annotations
 
@@ -47,16 +54,21 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, force=True)
 
     from ..config import platform_device
-    from ..data import ScanNetDataset, SnippetLoader, SyntheticDataset
+    from ..data import (DemoDataset, ScanNetDataset, SnippetLoader,
+                        SyntheticDataset)
     from ..parallel.multihost import initialize_distributed, is_main_process
     from ..train.checkpoint import load_pretrained
     from ..train.loop import Trainer
     initialize_distributed(int(cfg.TRAINER.NUM_NODES),
                            platform_device(cfg))
-    trainer = Trainer(cfg)              # rejects DEMO until vis is ported
+    trainer = Trainer(cfg)
     dm = cfg.DATAMODULE
     size = tuple(cfg.TPU.IMAGE_SIZE)
-    if dm.DATA_PATH == "synthetic":
+    if cfg.DEMO:
+        ds = DemoDataset(dm.DATA_PATH, dm.VAL_ANNOTATION_PATH,
+                         num_frames_per_snippet=dm.NUM_FRAMES_PER_SNIPPET,
+                         image_size=size, gravity_aligned=dm.GRAVITY_ALIGNED)
+    elif dm.DATA_PATH == "synthetic":
         ds = SyntheticDataset(num_snippets=8, image_size=size, seed=1000,
                               num_views=int(dm.NUM_FRAMES_PER_SNIPPET))
     else:
@@ -71,9 +83,11 @@ def main(argv=None):
         # the converter): an unshared model wants every iteration's keys
         load_pretrained(trainer.model, cfg.CHECKPOINT_PATH, strict=True)
         logging.info("loaded checkpoint %s", cfg.CHECKPOINT_PATH)
+    for_vis = bool(cfg.MODEL.DECODER.FOR_VIS)
     metrics = trainer.validate(loader,
                                limit_batches=cfg.TRAINER.LIMIT_VAL_BATCHES,
-                               verbose=True, timing=True)
+                               verbose=True, timing=True, for_vis=for_vis,
+                               vis_dir="demo_vis" if for_vis else None)
     if is_main_process():
         for key, value in metrics.items():
             print(key, value, flush=True)

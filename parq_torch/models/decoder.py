@@ -50,6 +50,15 @@ Parallel runs (`set_parallel`):
   and is not summed; the K/V projection's weight gradients are partial
   per shard and are summed. Every parameter's gradient is then the same on
   every rank of the group and equals one process's.
+- tensor parallelism (parallel/tensor_parallel.py, `shard_model_`): each
+  decoder layer holds its rank's self-attention heads and FFN columns and
+  runs them between `sum_grad` and `all_reduce_sum`, so every replicated
+  activation and gradient is the same on each rank of the model group.
+  The masks of the weight dropout and of the FFN's dropout are drawn for
+  every head and column and the rank keeps its own, so the ranks draw
+  what one process draws. The cross-attention is not sharded (the JAX
+  rule's patterns for it match no parameter): its flash kernels run with
+  every head on every rank.
 
 Parameter names follow the reference checkpoint: ``refpoint``,
 ``parq_module.decoder.{position_encoder, layers.0.*}`` and
@@ -76,9 +85,10 @@ from ..kernels.pixel_align import (pixel_aligned_features_precomputed,
                                    pixel_aligned_features_train)
 from ..ops.posemb import pos2posemb3d
 from ..parallel.seq_parallel import (
-    group_size, shard_tokens, sp_flash_cross_attention,
+    group_rank, group_size, shard_tokens, sp_flash_cross_attention,
     sp_flash_cross_attention_fwd_lse, sp_flash_cross_attention_kv_fused,
     sp_flash_cross_attention_precomputed, sum_grad)
+from ..parallel.tensor_parallel import all_reduce_sum
 from .mlp import MLP2, HeadMLP
 
 # dropout-site salts, shared by the sequential and folded paths so their
@@ -163,20 +173,31 @@ def _heads_split(x: torch.Tensor, heads: int) -> torch.Tensor:
 
 def self_attention(mha: nn.MultiheadAttention, q_in: torch.Tensor,
                    v_in: torch.Tensor, keep: Optional[torch.Tensor] = None,
-                   rate: float = 0.0) -> torch.Tensor:
+                   rate: float = 0.0, tp_group=None) -> torch.Tensor:
     """Multi-head self-attention with q = k = `q_in` and values from
     `v_in`, on `mha`'s parameters: plain matmul + softmax (Q is small).
-    `keep` (B, H, Q, Q): weight dropout, applied after the softmax."""
+    `keep` (B, H, Q, Q): weight dropout, applied after the softmax.
+    Under tensor parallelism (`tp_group`) `mha` holds this rank's heads
+    (its q, k and v rows and its out_proj columns): the inputs' gradients
+    are summed over the group and the output projection's partial sums
+    reduced before its bias is added."""
     D, H = mha.embed_dim, mha.num_heads
     w, b = mha.in_proj_weight, mha.in_proj_bias
-    qk = F.linear(q_in, w[:2 * D], b[:2 * D])
-    q = _heads_split(qk[..., :D], H) * (D // H) ** -0.5
-    k = _heads_split(qk[..., D:], H)
-    v = _heads_split(F.linear(v_in, w[2 * D:], b[2 * D:]), H)
+    Dl = w.shape[0] // 3                 # the rank's width: D / model
+    Hl = H * Dl // D
+    q_in, v_in = sum_grad(q_in, tp_group), sum_grad(v_in, tp_group)
+    qk = F.linear(q_in, w[:2 * Dl], b[:2 * Dl])
+    q = _heads_split(qk[..., :Dl], Hl) * (D // H) ** -0.5
+    k = _heads_split(qk[..., Dl:], Hl)
+    v = _heads_split(F.linear(v_in, w[2 * Dl:], b[2 * Dl:]), Hl)
     attn = torch.softmax((q @ k.transpose(-1, -2)).float(), dim=-1)
     attn = apply_drop(attn.to(v.dtype), keep, rate)
-    o = attn @ v                                     # (B, H, Q, hd)
-    return mha.out_proj(o.transpose(1, 2).reshape(q_in.shape[0], -1, D))
+    o = attn @ v                                     # (B, Hl, Q, hd)
+    o = o.transpose(1, 2).reshape(q_in.shape[0], -1, Dl)
+    if group_size(tp_group) == 1:
+        return mha.out_proj(o)
+    return all_reduce_sum(F.linear(o, mha.out_proj.weight),
+                          tp_group) + mha.out_proj.bias
 
 
 class QueryOutProjection(nn.Module):
@@ -210,6 +231,8 @@ class DecoderLayer(nn.Module):
                  dropout_rate: float = 0.0, kv_proj: bool = True):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.ffn_dim = ffn_dim
+        self.tp_group = None     # the model group under tensor parallelism
         self.self_attn = nn.MultiheadAttention(dim, heads, batch_first=True)
         self.multihead_attn = (
             nn.MultiheadAttention(dim, heads, batch_first=True) if kv_proj
@@ -258,6 +281,45 @@ class DecoderLayer(nn.Module):
                               sum_grad(b[s], sp_group))
                      for s in (slice(D, 2 * D), slice(2 * D, 3 * D)))
 
+    def _tp_part(self, n: int) -> slice:
+        """This rank's block of `n` heads or FFN columns (all of them
+        without tensor parallelism)."""
+        per = n // group_size(self.tp_group)
+        i = group_rank(self.tp_group)
+        return slice(i * per, (i + 1) * per)
+
+    def sa_keep(self, drops: DropoutDraws, groups: Sequence[int], B: int,
+                Q0: int) -> torch.Tensor:
+        """The self-attention weights' keep mask (B·G, H, Q0, Q0), drawn
+        for every head; under tensor parallelism the rank's heads."""
+        H = self.self_attn.num_heads
+        keep = drops.keep(groups, SALT_SA_W, (B, 1, H, Q0, Q0))
+        return keep[:, :, self._tp_part(H)].reshape(B * len(groups), -1,
+                                                     Q0, Q0)
+
+    def ffn_keep(self, drops: DropoutDraws, groups: Sequence[int], B: int,
+                 Q0: int) -> torch.Tensor:
+        """The keep mask after linear1's ReLU (B, G·Q0, F), drawn for every
+        column; under tensor parallelism the rank's columns."""
+        keep = drops.keep(groups, SALT_FFN, (B, Q0, self.ffn_dim))
+        return keep[..., self._tp_part(self.ffn_dim)]
+
+    def ffn(self, tgt: torch.Tensor, drops: Optional[DropoutDraws],
+            groups: Sequence[int]) -> torch.Tensor:
+        """linear2(drop(relu(linear1(tgt)))), before the residual dropout:
+        under tensor parallelism on the rank's columns, the row-parallel
+        partial sums reduced over the group before linear2's bias."""
+        tp = self.tp_group
+        h = F.relu(self.linear1(sum_grad(tgt, tp)))
+        if drops is not None:
+            h = apply_drop(h, self.ffn_keep(drops, groups, tgt.shape[0],
+                                             tgt.shape[1] // len(groups)),
+                           drops.rate)
+        if group_size(tp) == 1:
+            return self.linear2(h)
+        return all_reduce_sum(F.linear(h, self.linear2.weight),
+                              tp) + self.linear2.bias
+
     def forward(self, tgt: torch.Tensor, kv, query_pos: torch.Tensor,
                 drops: Optional[DropoutDraws] = None,
                 groups: Sequence[int] = (0,), aux_out: bool = False,
@@ -285,11 +347,10 @@ class DecoderLayer(nn.Module):
 
         sa_keep = None
         if drops is not None:
-            sa_keep = drops.keep(groups, SALT_SA_W,
-                                 (B, 1, H, Q0, Q0)).reshape(B * G, H, Q0, Q0)
+            sa_keep = self.sa_keep(drops, groups, B, Q0)
         q_sa = (tgt + query_pos).reshape(B * G, Q0, C)
         sa = self_attention(mha, q_sa, tgt.reshape(B * G, Q0, C), sa_keep,
-                            rate).reshape(B, GQ, C)
+                            rate, self.tp_group).reshape(B, GQ, C)
         tgt = self.norm1(tgt + drop(sa, SALT_DROP1))
 
         mha = self.multihead_attn
@@ -338,8 +399,8 @@ class DecoderLayer(nn.Module):
         ca = mha.out_proj(attn.transpose(1, 2).reshape(B, GQ, D))
         tgt = self.norm2(tgt + drop(ca, SALT_DROP2))
 
-        ff = drop(F.relu(self.linear1(tgt)), SALT_FFN)
-        tgt = self.norm3(tgt + drop(self.linear2(ff), SALT_DROP3))
+        tgt = self.norm3(tgt + drop(self.ffn(tgt, drops, groups),
+                                    SALT_DROP3))
         return (tgt, aux) if aux_out else tgt
 
 
@@ -453,7 +514,14 @@ class PARQDecoder(nn.Module):
                      data: int = 1) -> None:
         """Sequence parallelism over `sp_group` (a model group; None or one
         rank: off), and this rank's place (`data_index` of `data`) in a
-        data-parallel batch, for the dropout draws."""
+        data-parallel batch, for the dropout draws. A model sharded for
+        tensor parallelism (parallel/tensor_parallel.py) refuses SP."""
+        if sp_group is not None and any(
+                m.tp_group is not None for m in self.modules()
+                if isinstance(m, DecoderLayer)):
+            raise ValueError("sequence parallelism on a model sharded for "
+                             "tensor parallelism: the JAX package runs SP "
+                             "with replicated state only")
         self.sp_group, self.data_index, self.data = sp_group, data_index, data
 
     def iteration_modules(self, l: int):

@@ -72,14 +72,17 @@ class PARQModel(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                return_feature_map: bool = False):
         """batch: rgb_img (B, T, H, W, 3) in [0, 1], camera (B, T, 6),
         T_camera_pseudoCam / T_world_pseudoCam (B, T, 12),
         T_world_local (B, 1, 12). bf16 runs under autocast; geometry,
         norms' statistics, the sampler's sums and the heads' outputs stay
         f32. `deterministic=False` is the training forward, with the
-        decoder's dropout drawn from `generator`."""
+        decoder's dropout drawn from `generator`. Returns the decoder's
+        outputs; with `return_feature_map`, (outputs, the token memory
+        (B, T, h, w, C): backbone features plus the ray encoding, what the
+        JAX package sows as "feature_map" for image logging)."""
         dev = batch["rgb_img"].device
         bf16 = self.cfg.compute_dtype == "bfloat16"
         ctx = (torch.autocast(dev.type, dtype=torch.bfloat16) if bf16
@@ -91,9 +94,10 @@ class PARQModel(nn.Module):
             Twl = Pose(batch["T_world_local"])
             encoding = self.add_ray_pe(camera, Tcp, Twp, Twl)
             memory = self.backbone2d(batch["rgb_img"]) + encoding
-            return self.box3d_decoder(memory, camera, Tcp, Twp, Twl,
-                                      deterministic=deterministic,
-                                      generator=generator)
+            out = self.box3d_decoder(memory, camera, Tcp, Twp, Twl,
+                                     deterministic=deterministic,
+                                     generator=generator)
+        return (out, memory) if return_feature_map else out
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

@@ -1,16 +1,18 @@
 """The (data, model) grid of ranks (port of parq_tpu/parallel/mesh.py).
 
 The JAX package lays its devices out as a (data, model) `Mesh`: batches
-shard over `data`, the memory tokens over `model` under sequence
+shard over `data`; over `model`, the memory tokens under sequence
+parallelism, or the decoder's FFN and self-attention heads under tensor
 parallelism. Here one process runs each grid cell: rank r sits at data
 index r // model and model index r % model (the JAX mesh's row-major
 device order), and each row and column of the grid is a process group:
 `model_group` joins the ranks of one data index (they hold the same rows
-and split the memory tokens), `data_group` the ranks of one model index
-(they hold different rows; their gradients are averaged).
+and split the memory tokens or the weights), `data_group` the ranks of one
+model index (they hold different rows; their gradients are averaged).
 
-Tensor parallelism (`param_sharding_rules`) is not ported: the JAX
-Trainer replicates its state too.
+Tensor parallelism (`param_sharding_rules`, `shard_model_`) lives in
+parallel/tensor_parallel.py. As in the JAX package, only the dry run
+(parallel/dryrun.py) applies it: the Trainer replicates its state.
 """
 from __future__ import annotations
 

@@ -11,7 +11,12 @@ not read.
 Several ranks (torch.distributed): every rank calls `save` with the same
 state (the ranks' states are equal), rank 0 alone writes the file and the
 index, and the others keep the same index in memory and wait for it at a
-barrier. Every rank can `restore`.
+barrier. Every rank can `restore`. A model sharded for tensor parallelism
+(parallel/tensor_parallel.py) is written in the reference layout: `save`
+gathers its shards and AdamW's moments over the model group (every rank
+takes part), and `restore_state` and `load_pretrained` cut the full
+tensors back to the rank's shards, so its checkpoint loads strictly into
+one process and one process's into it.
 """
 from __future__ import annotations
 
@@ -24,6 +29,9 @@ from typing import Dict, Optional
 import torch
 
 from ..parallel.multihost import barrier, is_main_process
+from ..parallel.tensor_parallel import (full_optimizer_state, full_state_dict,
+                                        shard_optimizer_state,
+                                        shard_state_dict)
 
 logger = logging.getLogger(__name__)
 
@@ -81,10 +89,10 @@ class CheckpointManager:
              metrics: Optional[dict] = None,
              data_state: Optional[dict] = None) -> str:
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
-        payload = {"model": model.state_dict(), "step": int(step),
+        payload = {"model": full_state_dict(model), "step": int(step),
                    "metrics": metrics}
         if optimizer is not None:
-            payload["optimizer"] = optimizer.state_dict()
+            payload["optimizer"] = full_optimizer_state(model, optimizer)
         if data_state is not None:
             payload["data_state"] = {k: int(v) for k, v in data_state.items()}
         path = self.path(step)
@@ -132,9 +140,11 @@ def restore_state(mgr: CheckpointManager, model: torch.nn.Module,
     payload = mgr.restore(step, map_location=dev)
     if not payload:
         return {}
-    model.load_state_dict(payload["model"], strict=True)
+    model.load_state_dict(shard_state_dict(model, payload["model"]),
+                          strict=True)
     if optimizer is not None and "optimizer" in payload:
-        optimizer.load_state_dict(payload["optimizer"])
+        optimizer.load_state_dict(shard_optimizer_state(
+            model, optimizer, payload["optimizer"]))
     return {k: v for k, v in payload.items()
             if k not in ("model", "optimizer")}
 
@@ -181,6 +191,7 @@ def load_pretrained(model: torch.nn.Module, path: str,
     else:
         raise ValueError(f"unrecognized checkpoint layout in {path}: keys "
                          f"like {sorted(sd)[:3]}")
+    sd = shard_state_dict(model, sd)     # tensor parallelism: the shards
     own = model.state_dict()
     if strict:
         missing = sorted(set(own) - set(sd))

@@ -5,8 +5,15 @@ schedule, gradient accumulation, and the per-snippet latency protocol of
 eval.py.
 
 Scalars go to ``<workdir>/metrics.jsonl``, one JSON object a line with its
-stage and step. Image logging (LOG_IMAGES) needs the vis utilities, which
-are not ported yet: it is logged and skipped.
+stage and step. Images (LOG_IMAGES; the port has no TensorBoard) go as PNGs
+to ``<workdir>/images/<stage>_<tag>_<step>.png`` beside it: every
+LOG_IMAGES_FREQUENCY train steps and on the first validation batch, the
+prediction and GT wireframe overlays and, for train steps, the PCA of the
+backbone's feature map (`log_images`). `validate(for_vis=True, vis_dir=d)`
+writes each batch's ``{scene}_{snippet}_rgb_imgwithbox.png`` into d, the
+FOR_VIS/DEMO output of eval.py. The vis utilities (utils/vis.py) need
+neither cv2 nor PIL, and a failure in them raises (the JAX Trainer logs
+and swallows it, loop.py:191-192).
 TPU.DEBUG_NANS stops at the first NaN with FloatingPointError, as the JAX
 package's jax_debug_nans does (train/debug_nans.py).
 
@@ -40,13 +47,15 @@ import torch
 
 from .. import resolve_device
 from ..config import ModelConfig, check_card_support, platform_device
-from ..evals import (F1Calculator, finish_parse_pred, parse_pred_device,
-                     targets_to_gt_list)
+from ..data.transforms import pose12_compose, pose12_inverse
+from ..evals import (F1Calculator, finish_parse_pred, parse_pred,
+                     parse_pred_device, targets_to_gt_list)
 from ..geometry import Obb3D, Pose
 from ..losses import parse_targets
 from ..models import BATCH_KEYS, build_model
 from ..parallel.mesh import make_mesh, replicated
 from ..parallel.multihost import is_main_process, rank_device
+from ..utils import vis
 from . import debug_nans
 from .checkpoint import CheckpointManager, load_pretrained, restore_state
 from .schedule import lr_schedule_from_cfg
@@ -131,9 +140,6 @@ class Trainer:
 
     def __init__(self, cfg, workdir: Optional[str] = None):
         check_card_support(cfg)
-        if cfg.DEMO or cfg.MODEL.DECODER.FOR_VIS:
-            raise ValueError("DEMO / MODEL.DECODER.FOR_VIS need the vis "
-                             "utilities, not ported yet (ROADMAP §A6)")
         self.cfg = cfg
         self.device = rank_device(resolve_device(platform_device(cfg)))
         if self.device.index is not None:   # a rank's own card
@@ -153,9 +159,10 @@ class Trainer:
             monitor=str(cfg.CALLBACK.MONITOR).split("/")[-1],
             mode=cfg.CALLBACK.MODE)
         self.metrics_path = os.path.join(self.workdir, "metrics.jsonl")
-        if cfg.LOG_IMAGES:
-            logger.info("LOG_IMAGES: image logging is not ported yet "
-                        "(utils/vis.py); no images are written")
+        # the JAX Trainer logs validation images only once its writer
+        # exists (loop.py:445-448): after the first scalars of a training
+        # run; a standalone eval writes none
+        self._logging = False
         self.model = None
         self.optimizer = None
         self.lr_schedule: Optional[Callable[[int], float]] = None
@@ -176,6 +183,81 @@ class Trainer:
                 pass
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(row) + "\n")
+        self._logging = True
+
+    def _write_image(self, img: np.ndarray, stage: str, tag: str) -> str:
+        out = os.path.join(self.workdir, "images")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"{stage}_{tag}_{self.global_step}.png")
+        vis.write_png(path, vis.to_uint8(img))
+        return path
+
+    def log_images(self, batch: Dict, outputs: Dict[str, torch.Tensor],
+                   stage: str, feature_map: Optional[torch.Tensor] = None):
+        """The prediction wireframes of the last iteration (parse_pred,
+        with NMS when ENABLE_NMS), the GT wireframes when the batch has
+        boxes, and the PCA of `feature_map` (B, T, h, w, C), each of
+        sample 0, as PNGs (ref: parq_lightning.py:228-293). `batch` is the
+        host batch. Returns the paths written."""
+        dec = self.cfg.MODEL.DECODER
+        last = {k: v[-1] for k, v in outputs.items()}
+        Twl = torch.as_tensor(np.asarray(batch["T_world_local"], np.float32),
+                              device=last["ortho6d"].device)
+        host = parse_pred(last, Twl, tuple(dec.TRACK_SCALE), dec.NUM_SEMCLS,
+                          enable_nms=bool(dec.ENABLE_NMS))
+        paths = [self._write_image(self._render_boxes(batch, host), stage,
+                                   "rgb_imgwithbox")]
+        if "obbs_padded" in batch:
+            paths.append(self._write_image(self._render_gt_boxes(batch),
+                                           stage, "gt_imgwithbox"))
+        if feature_map is not None:
+            fm = feature_map[0].float().cpu().numpy()     # (T, h, w, C)
+            pca = np.concatenate([vis.normalize_img(vis.pca_compress(fm[t]))
+                                  for t in range(fm.shape[0])], axis=0)
+            paths.append(self._write_image(pca, stage, "feature_map"))
+        return paths
+
+    def _render_boxes(self, batch: Dict, host: Dict):
+        """Sample 0's kept predictions over its views; boxes live in the
+        local frame and are lifted to the world (ref:
+        parq_decoder.py:506-507)."""
+        b = 0
+        obb = host["obb_data"][b]
+        T_world_object = pose12_compose(
+            np.asarray(batch["T_world_local"], np.float32)[b], obb[:, 6:18])
+        img = vis.draw_detections(
+            np.asarray(batch["rgb_img"])[b], np.asarray(batch["camera"])[b],
+            Obb3D(torch.from_numpy(obb)).corners_object.numpy(),
+            T_world_object,
+            pose12_inverse(np.asarray(batch["T_world_pseudoCam"])[b]),
+            np.asarray(batch["T_camera_pseudoCam"])[b], host["labels"][b],
+            self.cfg.MODEL.DECODER.NUM_SEMCLS, mask=host["pred_mask"][b])
+        return vis.normalize_img(img)
+
+    def _render_gt_boxes(self, batch: Dict):
+        """Sample 0's GT wireframes (world-frame poses) over its views."""
+        b = 0
+        obb = Obb3D(torch.from_numpy(np.asarray(batch["obbs_padded"],
+                                                np.float32)[b]))
+        valid = obb.valid_mask().numpy()
+        labels = np.where(valid, obb.sem_id[..., 0].numpy().astype(np.int64),
+                          -1)
+        img = vis.draw_detections(
+            np.asarray(batch["rgb_img"])[b], np.asarray(batch["camera"])[b],
+            obb.corners_object.numpy(), obb.T_world_object.data.numpy(),
+            pose12_inverse(np.asarray(batch["T_world_pseudoCam"])[b]),
+            np.asarray(batch["T_camera_pseudoCam"])[b], labels,
+            self.cfg.MODEL.DECODER.NUM_SEMCLS, mask=valid)
+        return vis.normalize_img(img)
+
+    def _save_vis(self, batch: Dict, host: Dict, vis_dir: str) -> str:
+        """The FOR_VIS/DEMO PNG of sample 0 (ref: parq_lightning.py:
+        295-304): ``{scene}_{snippet}_rgb_imgwithbox.png``."""
+        os.makedirs(vis_dir, exist_ok=True)
+        name = f"{batch['scene_name'][0]}_{batch['snippet_id'][0]}"
+        path = os.path.join(vis_dir, f"{name}_rgb_imgwithbox.png")
+        vis.write_png(path, vis.to_uint8(self._render_boxes(batch, host)))
+        return path
 
     def _tick(self, phase: str, t0: float) -> float:
         now = time.perf_counter()
@@ -256,6 +338,7 @@ class Trainer:
         nan_ctx = (debug_nans.nan_errors if cfg.TPU.DEBUG_NANS
                    else contextlib.nullcontext)
         k = self.accumulate
+        log_img_every = max(int(cfg.LOG_IMAGES_FREQUENCY), 1)
         overfit_cache = []
         while train_loader.epoch < cfg.TRAINER.MAX_EPOCHS:
             t0 = time.perf_counter()
@@ -293,6 +376,16 @@ class Trainer:
                         model_group=self.mesh.model_group)
                 t0 = self._tick("train_step", t0)
                 self.global_step += 1
+                if cfg.LOG_IMAGES and self.global_step % log_img_every == 0:
+                    # every rank runs the forward (its collectives), rank 0
+                    # writes
+                    with torch.no_grad():
+                        outputs, feat = self.model(
+                            dev_batch, deterministic=True,
+                            return_feature_map=True)
+                    if is_main_process():
+                        self.log_images(batch, outputs, "train", feat)
+                    t0 = self._tick("log_images", t0)
                 if prof_steps and self.global_step == 2:
                     profiler = self._start_profiler()
                 if profiler is not None and \
@@ -348,13 +441,18 @@ class Trainer:
 
     @torch.no_grad()
     def validate(self, loader, limit_batches=1.0, verbose: bool = False,
-                 timing: bool = False) -> Dict[str, float]:
+                 timing: bool = False, for_vis: bool = False,
+                 vis_dir: Optional[str] = None) -> Dict[str, float]:
         """F1 at IoU 0.25/0.5/0.7 and the mean loss over the first
         `limit_batches` batches of `loader`, always from the start of the
         set. One batch of device work is queued before the previous batch's
         host half (numpy copy, NMS, F1 association) runs; `timing` keeps
         every batch strictly serial and prints its latency (eval.py's
-        protocol)."""
+        protocol). `for_vis` (MODEL.DECODER.FOR_VIS): every box is valid and
+        the NMS is the same-class one of the visualization; with `vis_dir`
+        rank 0 writes each batch's overlay PNG there. Under LOG_IMAGES the
+        first batch's overlays are logged, once the Trainer has logged
+        scalars (a training run), by rank 0."""
         cfg = self.cfg
         dec = cfg.MODEL.DECODER
         calc = F1Calculator(dec.CONF_THRESH, num_semcls=dec.NUM_SEMCLS)
@@ -375,19 +473,24 @@ class Trainer:
         self.model.eval()
 
         def host_finish(item):
-            batch, _, dev_parsed, _ = item
+            batch, _, dev_parsed = item[:3]
             host = finish_parse_pred(dev_parsed, dec.NUM_SEMCLS,
-                                     enable_nms=bool(dec.ENABLE_NMS))
+                                     enable_nms=bool(dec.ENABLE_NMS),
+                                     for_vis=for_vis)
             host["scene_name"] = batch["scene_name"]
             return host
 
         def consume(item, host):
             nonlocal total_loss, count
-            _, losses, _, targets = item
+            batch, losses, _, targets, outputs, i = item
+            if i == 0 and cfg.LOG_IMAGES and self._logging:
+                self.log_images(batch, outputs, "val")
             if targets is not None:
                 calc.step(host, targets_to_gt_list(targets))
                 total_loss += float(losses["total_loss"])
                 count += 1
+            if for_vis and vis_dir and is_main_process():
+                self._save_vis(batch, host, vis_dir)
 
         # the 'simple' profiler's split of a validation: waiting for the
         # loader (val_data), the step and device parse with the matcher's
@@ -403,13 +506,13 @@ class Trainer:
                                         self.loss_cfg)
             last = {k: v[-1] for k, v in outputs.items()}
             dev_parsed = parse_pred_device(last, dev_batch["T_world_local"],
-                                           tuple(dec.TRACK_SCALE))
+                                           tuple(dec.TRACK_SCALE), for_vis)
             targets = None
             if "obbs_padded" in dev_batch:
                 targets = parse_targets(Obb3D(dev_batch["obbs_padded"]),
                                         Pose(dev_batch["T_world_local"]),
                                         dev_batch.get("sym"))
-            item = (batch, losses, dev_parsed, targets)
+            item = (batch, losses, dev_parsed, targets, outputs, i)
             tick = self._tick("val_step", tick)
             if timing:
                 host = host_finish(item)

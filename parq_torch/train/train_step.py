@@ -35,7 +35,12 @@ does; the metrics are the global batch's too. The ranks of a model group
 parallelism, or the same work repeated) each hold the full gradient
 already; it is averaged over the group as well, so that the card's
 nondeterministic kernels (cuDNN's weight gradients, atomics) cannot let
-their copies of the parameters drift apart.
+their copies of the parameters drift apart. Under tensor parallelism
+(parallel/tensor_parallel.py) the ranks of a model group hold different
+shards of some parameters: those gradients stay out of the model group's
+mean (it would mix different shards) and are still averaged over the data
+group, the clip adds their squares over the model group, and AdamW steps
+each shard.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ import torch.distributed as dist
 from ..geometry import Obb3D, Pose
 from ..losses import parse_targets, set_loss
 from ..parallel.seq_parallel import group_size
+from ..parallel.tensor_parallel import sharded_parameters, tensor_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,12 +108,29 @@ def all_reduce_mean_(tensors, group) -> None:
             flat.split([t.numel() for t in ts]), ts)])
 
 
-def clip_by_global_norm_(params, max_norm: float = 1.0) -> torch.Tensor:
+def _norms(grads) -> torch.Tensor:
+    return torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+
+
+def clip_by_global_norm_(params, max_norm: float = 1.0, sharded=(),
+                         model_group=None) -> torch.Tensor:
     """Scale the gradients in place by min(1, max_norm / ‖g‖) and return
-    ‖g‖ before the clip (optax.clip_by_global_norm; no epsilon)."""
+    ‖g‖ before the clip (optax.clip_by_global_norm; no epsilon).
+    `sharded`: the ids of parameters held as tensor-parallel shards over
+    `model_group` (the model's own, `TensorParallel.group`); their squares are summed over the group and the
+    replicated gradients counted once, so ‖g‖ is one process's, the same
+    on every rank."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    if not sharded:
+        norm = torch.linalg.vector_norm(_norms(grads))
+    else:
+        own = [p.grad for p in params
+               if p.grad is not None and id(p) in sharded]
+        rep = [p.grad for p in params
+               if p.grad is not None and id(p) not in sharded]
+        sq = _norms(own).square().sum()
+        dist.all_reduce(sq, group=model_group)
+        norm = torch.sqrt(sq + _norms(rep).square().sum())
     scale = torch.clamp(max_norm / norm, max=1.0)
     torch._foreach_mul_(grads, scale.to(grads[0].dtype))
     return norm
@@ -192,10 +215,15 @@ def train_step(model, optimizer: torch.optim.Optimizer,
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    for group in (model_group, data_group):
-        if group_size(group) > 1:
-            all_reduce_mean_([p.grad for p in params], group)
-    metrics["grad_norm"] = clip_by_global_norm_(params, max_norm)
+    sharded = sharded_parameters(model)
+    if group_size(model_group) > 1:
+        all_reduce_mean_([p.grad for p in params if id(p) not in sharded],
+                         model_group)
+    if group_size(data_group) > 1:
+        all_reduce_mean_([p.grad for p in params], data_group)
+    tp = tensor_parallel(model)
+    metrics["grad_norm"] = clip_by_global_norm_(
+        params, max_norm, sharded, None if tp is None else tp.group)
     optimizer.step()
     return metrics
 

@@ -4,7 +4,8 @@ source and reads its import statements (mentions in prose are fine).
 It also checks that a CPU-only box can import every port module (the
 kernels are built only when first launched on a card), and that importing
 them all pulls in none of the packages the card machine lacks (PyYAML,
-PIL, tensorboardX, orbax)."""
+PIL, tensorboardX, orbax, cv2: the vis utilities draw and write PNGs
+themselves)."""
 import ast
 import importlib
 import subprocess
@@ -56,7 +57,7 @@ def _module_names():
 
 
 def test_port_imports_need_no_yaml_pil_tensorboard_or_orbax():
-    absent = ("yaml", "PIL", "tensorboardX", "orbax")
+    absent = ("yaml", "PIL", "tensorboardX", "orbax", "cv2")
     code = ("import importlib, sys\n"
             f"for m in {sorted(_module_names())!r}:\n"
             "    importlib.import_module(m)\n"

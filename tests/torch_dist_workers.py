@@ -188,3 +188,70 @@ def trainer_fit(rank, world, cfg_path, log_path, opts):
     return ({n: p.detach().clone() for n, p in
              trainer.model.named_parameters()}, rows, ckpts,
             (trainer.mesh.data, trainer.mesh.model))
+
+
+def tp_runs(rank, world, mcfg, batch, ckpt_one, ckpt_tp, jax_case):
+    """Tensor parallelism over a model group of `world` ranks (data 1):
+    - "b": one train_step of the tiny model (seed 1) at mcfg's dropout,
+      the step's generator seeded 7: metrics, the clipped gradients and
+      the updated parameters gathered into the reference layout, and this
+      rank's dropout masks of the self-attention weights and of the FFN;
+    - "d": the TP checkpoint of that step written to `ckpt_tp` (rank 0
+      writes); the one-process checkpoint in `ckpt_one` restored into a
+      fresh TP model and AdamW (this rank's shards and moments);
+    - "c": one step at dropout 0 from `jax_case`'s weights (the JAX
+      package's init through from_jax) and matcher draws, lr 1e-4."""
+    from parq_torch.models import build_model
+    from parq_torch.models.decoder import DropoutDraws
+    from parq_torch.parallel.mesh import make_mesh
+    from parq_torch.parallel.tensor_parallel import (full_state_dict,
+                                                     gathered, shard_model_)
+    from parq_torch.train.checkpoint import CheckpointManager, restore_state
+    from parq_torch.train.train_step import make_optimizer, train_step
+    mesh = make_mesh(data=1, model=world)
+    rows = {k: _t(v) for k, v in batch.items()}
+    out = {}
+
+    def sharded(cfg, seed, state=None):
+        model = build_model(cfg, seed=seed, device="cpu").train()
+        if state is not None:
+            model.load_state_dict(state)
+        return shard_model_(model, mesh)
+
+    model = sharded(mcfg, 1)
+    try:
+        model.set_parallel(mesh, True)
+        out["sp_refused"] = ""
+    except ValueError as e:
+        out["sp_refused"] = str(e)
+    opt = make_optimizer(model, lr=1e-3)
+    m = train_step(model, opt, rows, torch.Generator().manual_seed(7),
+                   model_group=mesh.model_group)
+    B, L, Q = batch["rgb_img"].shape[0], mcfg.dec_layers, mcfg.num_queries
+    drops = DropoutDraws(mcfg.dropout_rate, L, "cpu",
+                         torch.Generator().manual_seed(7))
+    layer = model.box3d_decoder.parq_module.decoder.layers[0]
+    out["b"] = ({k: float(v) for k, v in m.items()},
+                gathered(model, {n: p.grad.clone() for n, p in
+                                 model.named_parameters()}),
+                full_state_dict(model),
+                (layer.sa_keep(drops, range(L), B, Q),
+                 layer.ffn_keep(drops, range(L), B, Q)))
+
+    CheckpointManager(ckpt_tp, save_top_k=1).save(1, model, opt)
+    fresh = sharded(mcfg, 5)
+    fresh_opt = make_optimizer(fresh, lr=1e-3)
+    restore_state(CheckpointManager(ckpt_one), fresh, fresh_opt)
+    out["d"] = ({n: p.detach().clone() for n, p in fresh.named_parameters()},
+                {n: {k: v.clone() for k, v in fresh_opt.state[p].items()}
+                 for n, p in fresh.named_parameters()})
+
+    jcfg, state, u, lr = jax_case
+    model = sharded(jcfg, 0, {k: _t(v) for k, v in state.items()})
+    m = train_step(model, make_optimizer(model, lr=lr), rows, None,
+                   uniforms=_t(u), model_group=mesh.model_group)
+    out["c"] = ({k: float(v) for k, v in m.items()},
+                gathered(model, {n: p.grad.clone() for n, p in
+                                 model.named_parameters()}),
+                full_state_dict(model))
+    return out
