@@ -9,7 +9,10 @@ Phases, each printed on its own line; any failure exits non-zero:
   3. kernels — the Hopper building blocks (wgmma descriptors, TMA) on one
                tile against a plain product; then each kernel against its
                plain PyTorch version at the release shapes: B1 (sampler) in
-               bf16 and f32, atol 1e-4; B2 (flash cross-attention) in bf16
+               bf16 and f32 at B=8 T=3, B=1 T=3 (eval, serving) and B=1 T=6
+               (scaled), each timed against its bound: the output in the
+               memory's dtype, its f32 sums within 1e-4 of the plain sums
+               and the output equal to them rounded, bit for bit; B2 (flash cross-attention) in bf16
                (atol 2e-2: bf16 output rounding) and f32 (atol 1e-4), at
                every KV split the wrapper can choose, plus B2 at a ragged
                N; B2's train form (LSE to 1e-4, dropout 0.1) at Q=256, and
@@ -75,9 +78,10 @@ Phases, each printed on its own line; any failure exits non-zero:
                host's work included) and a profile of one forward; per
                kernel device ms (CUDA-graph replay; the library's dropout
                and backward calls by CUDA events), launches on its path,
-               bound ms, plain ms and the library call's ms; B4 on its
-               three distributions; B3's two passes from one profiled
-               launch;
+               bound ms, plain ms and the library call's ms (B4's record
+               with g in the memory's dtype, as B1's output hands it on the
+               training paths); B4 on its three distributions; B3's two
+               passes from one profiled launch;
  11. sp      — two ranks on the one card over gloo (NCCL refuses two ranks
                on one GPU), MESH_MODEL 2, the memory tokens sharded: an f32
                step (TF32 off, L=2, B=1, dropout 0) against the one-process
@@ -304,10 +308,11 @@ def attention_inputs(B, H, Q, N, D, dtype, gen):
     return q, kv
 
 
-def sampler_bound_ms(mem, uvs):
+def sampler_bound_ms(mem, uvs, out_size=None):
     """Bytes the sampler must move for THIS data: every distinct in-image
-    tap row read once, the (u, v, scale) rows read, the f32 output
-    written once."""
+    tap row read once, the (u, v, scale) rows read, the output written
+    once in the memory's dtype (B1 writes it; `out_size` bytes an element
+    otherwise, 4 for f32 sums)."""
     B, T, H, W, C = mem.shape
     x0, y0 = torch.floor(uvs[..., 0]), torch.floor(uvs[..., 1])
     rows = []
@@ -321,8 +326,9 @@ def sampler_bound_ms(mem, uvs):
             rows.append(idx[inb])
     n_rows = torch.unique(torch.cat(rows)).numel()
     Q = uvs.shape[2]
+    out_size = mem.element_size() if out_size is None else out_size
     nbytes = (n_rows * C * mem.element_size() + uvs.numel() * 4
-              + B * Q * C * 4)
+              + B * Q * C * out_size)
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
@@ -410,24 +416,77 @@ def phase_build():
           f"parq_torch/csrc in {seconds:.2f} s")
 
 
-def phase_kernels(cfg):
-    """Each kernel vs its plain version at the release shapes."""
-    from parq_torch.kernels import flash_cross_attention_kv_fused as flash
+def check_sampler(label, mem, uvs):
+    """B1 on `mem` in bf16 and f32 against its plain version: the output in
+    the memory's dtype, its f32 sums (`sample_views_sums`) within 1e-4 of
+    the plain sums, the output equal to those sums cast by torch bit for
+    bit, two launches equal bit for bit. Returns the bf16 output's max abs
+    error against the plain version's (the plain sums cast to bf16: 0, or
+    one bf16 step where the two sums round to either side)."""
     from parq_torch.kernels import sample_views
+    from parq_torch.kernels.pixel_align import (sample_views_plain,
+                                                sample_views_sums)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        m = mem.to(dtype)
+        got = sample_views(m, uvs)
+        check(got.dtype == dtype, f"{label} B1 {dtype}: output {got.dtype}")
+        check(torch.equal(got, sample_views(m, uvs)),
+              f"{label} B1 {dtype}: two launches differ")
+        sums = sample_views_sums(m, uvs)
+        want = sample_views_plain(m, uvs)
+        err = (sums - want).abs().max().item()
+        check(err <= 1e-4, f"{label} B1 {dtype}: f32 sums max abs err "
+              f"{err} > 1e-4")
+        check(torch.equal(got, sums.to(dtype)), f"{label} B1 {dtype}: the "
+              "output is not its f32 sums rounded to the memory's dtype")
+        errs[dtype] = (got.float() - want.to(dtype).float()
+                       ).abs().max().item()
+        phase("kernels", f"{label} B1 {str(dtype)[6:]} {tuple(m.shape)} "
+              f"Q={uvs.shape[2]}: output {str(got.dtype)[6:]}, f32 sums max "
+              f"abs err {err:.3e} (atol 1e-4), output = its sums rounded bit "
+              f"for bit (against the plain output {errs[dtype]:.3e}), two "
+              "launches equal")
+    return errs[torch.bfloat16]
+
+
+def sampler_rows(cfg, scaled_cfg, gen):
+    """B1 checked and timed at the three shapes its paths give it: the
+    release forward and step (B=8, T=3), the eval twin and serving at B=1
+    (T=3) and the scaled config (B=1, T=6), bf16. Launches are filled from
+    each path's run."""
+    from parq_torch.kernels import sample_views
+    from parq_torch.kernels.pixel_align import sample_views_plain
+    rows = {}
+    for name, mcfg, B in (("pixel_align_sample", cfg, 8),
+                          ("pixel_align_sample_eval", cfg, 1),
+                          ("pixel_align_sample_scaled", scaled_cfg, 1)):
+        mem, uvs = release_sampler_inputs(mcfg, B, torch.bfloat16, gen)
+        err = check_sampler(name, mem, uvs)
+        rows[name] = dict(
+            name=name, route="cuda", source="parq_torch/csrc/pixel_align.cu",
+            replaces="parq_tpu/kernels/pixel_align_pallas.py:168",
+            ms=device_ms(lambda: sample_views(mem, uvs), 50),
+            plain_ms=device_ms(lambda: sample_views_plain(mem, uvs), 10),
+            bound_ms=sampler_bound_ms(mem, uvs), bound_by="bytes",
+            library_ms=None, max_abs_err=err)
+        r = rows[name]
+        phase("kernels", f"{name} B={B} T={mem.shape[1]}: {r['ms']:.4f} "
+              f"ms/launch, bound {r['bound_ms']:.4f} ms (bytes, bf16 out), "
+              f"plain {r['plain_ms']:.4f} ms")
+    return rows
+
+
+def phase_kernels(cfg, scaled_cfg):
+    """Each kernel vs its plain version at the release shapes; B1 also at
+    its B=1 shapes. Returns the errors and B1's record rows."""
+    from parq_torch.kernels import flash_cross_attention_kv_fused as flash
     from parq_torch.kernels.cross_attention import (
         MAX_SPLITS, _flash_fwd, _splits_for, cross_attention_kv_fused_plain,
         split_bounds)
-    from parq_torch.kernels.pixel_align import sample_views_plain
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        mem, uvs = release_sampler_inputs(cfg, 8, dtype, gen)
-        err = (sample_views(mem, uvs)
-               - sample_views_plain(mem, uvs)).abs().max().item()
-        check(err <= 1e-4, f"B1 {dtype} max abs err {err} > 1e-4")
-        errs[("B1", dtype)] = err
-        phase("kernels", f"B1 sampler {str(dtype)[6:]} {tuple(mem.shape)} "
-              f"Q={uvs.shape[2]}: max abs err {err:.3e} (atol 1e-4)")
+    b1_rows = sampler_rows(cfg, scaled_cfg, gen)
     check_building_blocks(gen)
     Hh = cfg.dec_heads
     D = cfg.dec_dim // Hh
@@ -462,13 +521,14 @@ def phase_kernels(cfg):
     errs.update(train_kernels(cfg, gen, N))
     errs.update(split_kernels(cfg, gen, N))
     torch.cuda.synchronize()
-    return {"pixel_align_sample": errs[("B1", torch.bfloat16)],
+    return {"pixel_align_sample": b1_rows["pixel_align_sample"][
+                "max_abs_err"],
             "flash_cross_attention_fwd": errs[("B2", torch.bfloat16, N)],
             "flash_cross_attention_fwd_train": errs["B2-train"],
             "flash_cross_attention_bwd": errs["B3"],
             "pixel_align_bwd_mem": errs["B4"],
             **{k: v for k, v in errs.items() if isinstance(k, str)
-               and k.startswith("flash_cross_attention_")}}
+               and k.startswith("flash_cross_attention_")}}, b1_rows
 
 
 def check_building_blocks(gen):
@@ -1235,20 +1295,27 @@ def phase_matcher(cfg, scaled_cfg, smi_line):
           f"{cuda_ms(lambda: match_batch(*inputs, uniforms=u), 10):.3f} ms "
           f"(CUDA events, host included); the plain LAP on the card "
           f"{plain_ms:.2f} ms")
-    # bound_ms counts bytes; the search is a chain of dependent block
-    # reductions, so latency is what limits it (`limited_by`)
+    # bound_ms counts bytes; the search is a chain of dependent warp
+    # reductions, so latency is what limits it (`limited_by`); the record
+    # also carries the times at 100 targets a pair
     common = dict(route="cuda", source="parq_torch/csrc/lap.cu",
                   replaces="parq_tpu/ops/hungarian.py:24", bound_by="bytes",
                   limited_by="latency", library_ms=None)
     rel_err = max(errs[k] for k in ("mix", "K > Q", "release",
                                     "release, n_valid 100"))
     sc_err = max(errs["scaled"], errs["scaled, n_valid 100"])
+    rel100, sc100 = cases["release, n_valid 100"], cases["scaled, n_valid 100"]
     return [dict(common, name="lap_solve", ms=rel["ms"], plain_ms=plain_ms,
                  bound_ms=rel["bound"], max_abs_err=rel_err,
-                 host_route_ms=rel["host_ms"]),
+                 host_route_ms=rel["host_ms"], ms_100_targets=rel100["ms"],
+                 bound_ms_100_targets=rel100["bound"],
+                 host_route_ms_100_targets=rel100["host_ms"]),
             dict(common, name="lap_solve_scaled", ms=sc["ms"],
                  plain_ms=sc_plain_ms, bound_ms=sc["bound"],
-                 max_abs_err=sc_err, host_route_ms=sc["host_ms"])]
+                 max_abs_err=sc_err, host_route_ms=sc["host_ms"],
+                 ms_100_targets=sc100["ms"],
+                 bound_ms_100_targets=sc100["bound"],
+                 host_route_ms_100_targets=sc100["host_ms"])]
 
 
 # ---------------------------------------------------- the host C++ library --
@@ -1342,18 +1409,18 @@ def phase_native(smi_line):
           f"the same matrix and matches")
 
 
-def phase_times(cfg, engine, counts, requests, train_counts, errs):
-    """Times from CUDA events on this card, and the kernels' record."""
+def phase_times(cfg, engine, counts, requests, train_counts, errs, b1_row):
+    """Times from CUDA events on this card, and the kernels' record (B1's
+    row timed by `sampler_rows`)."""
     import torch.nn.functional as F
     from parq_torch.kernels import flash_bwd, flash_fwd_lse
     from parq_torch.kernels import flash_cross_attention_kv_fused as flash
-    from parq_torch.kernels import sample_views, sample_views_bwd_mem
+    from parq_torch.kernels import sample_views_bwd_mem
     from parq_torch.kernels.cross_attention import (
         _flash_fwd, _flash_fwd_lse, _splits_for,
         cross_attention_kv_fused_bwd_plain, cross_attention_kv_fused_plain,
         cross_attention_kv_fused_train_plain, split_kv)
-    from parq_torch.kernels.pixel_align import (sample_views_bwd_mem_plain,
-                                                sample_views_plain)
+    from parq_torch.kernels.pixel_align import sample_views_bwd_mem_plain
     B = engine.batch_size
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: engine.model(engine.example), 10)
@@ -1371,13 +1438,7 @@ def phase_times(cfg, engine, counts, requests, train_counts, errs):
     k, v = (t.contiguous() for t in split_kv(kv, Hh))
     b2_bound, b2_by = attention_bound(q, kv)
     rows = [
-        dict(name="pixel_align_sample", route="cuda",
-             source="parq_torch/csrc/pixel_align.cu",
-             replaces="parq_tpu/kernels/pixel_align_pallas.py:168",
-             ms=device_ms(lambda: sample_views(mem, uvs), 50),
-             plain_ms=device_ms(lambda: sample_views_plain(mem, uvs), 10),
-             bound_ms=sampler_bound_ms(mem, uvs), bound_by="bytes",
-             library_ms=None),
+        dict(b1_row),
         dict(name="flash_cross_attention_fwd", route="cuda",
              source="parq_torch/csrc/flash_fwd_sm90.cu",
              replaces="parq_tpu/kernels/cross_attention_pallas.py:457",
@@ -1429,19 +1490,20 @@ def phase_times(cfg, engine, counts, requests, train_counts, errs):
     mem_shape, g, dists = sampler_bwd_inputs(cfg, B, gen)
     uvf = dists["release"]
     b4_bound, b4_by = sampler_bwd_bound(uvf, g, mem_shape, mem.dtype)
+    g_path = g.to(mem.dtype)   # the training paths hand B4 B1's dtype
     rows.append(dict(
         name="pixel_align_bwd_mem", route="cuda",
         source="parq_torch/csrc/pixel_align_bwd.cu",
         replaces="parq_tpu/kernels/pixel_align_pallas.py:280",
-        ms=device_ms(lambda: sample_views_bwd_mem(uvf, g, mem_shape,
+        ms=device_ms(lambda: sample_views_bwd_mem(uvf, g_path, mem_shape,
                                                   mem.dtype), 20),
         plain_ms=device_ms(lambda: sample_views_bwd_mem_plain(
-            uvf, g, mem_shape, mem.dtype), 3),
+            uvf, g_path, mem_shape, mem.dtype), 3),
         bound_ms=b4_bound, bound_by=b4_by,
         library_ms=grid_sampler_bwd_ms(mem, uvf, g)))
     for r in rows[2:]:
         r["launches"] = train_counts[r["name"]]
-    for r in rows:
+    for r in rows[1:]:
         r["max_abs_err"] = errs[r["name"]]
         phase("times", f"{r['name']}: {r['ms']:.4f} ms/launch"
               f", {r['launches']} launches on its path, bound "
@@ -1777,7 +1839,8 @@ def phase_fit(smi_line):
 
 
 def phase_eval(ckpt, smi_line):
-    """The eval twin on the fit's best checkpoint; its printed metrics."""
+    """The eval twin on the fit's best checkpoint: its printed metrics and
+    the kernels' launches over its 8 snippets."""
     from parq_torch.cli import eval as cli_eval
     from parq_torch.kernels import launch_counts, reset_launch_counts
     out = io.StringIO()
@@ -1800,7 +1863,7 @@ def phase_eval(ckpt, smi_line):
           f"{os.path.relpath(ckpt, ROOT)}: mean latency {latency_ms:.2f} ms "
           f"per snippet (the first excluded); launches {counts}; 0.5_f1 "
           f"{metrics['0.5_f1']}")
-    return metrics
+    return metrics, counts
 
 
 # ------------------------------------------- the scaled-recurrence config --
@@ -1863,28 +1926,18 @@ def scaled_inputs(mcfg, gen):
 
 def scaled_kernels(mcfg):
     """Each kernel of the scaled path against its plain version at its
-    shapes, with the release checks' tolerances: B1 (bf16 and f32, atol
-    1e-4), B2 and B2-train (bf16, atol 2e-2, lse 1e-4), B3 (2e-2 of the
+    shapes, with the release checks' tolerances: B1 (bf16 and f32,
+    `check_sampler`), B2 and B2-train (bf16, atol 2e-2, lse 1e-4), B3 (2e-2 of the
     largest element), B4 (1e-2 of it, two launches equal bit for bit).
     Returns the bf16 max abs errors."""
     from parq_torch.kernels import (flash_cross_attention_kv_fused,
-                                    flash_fwd_lse, sample_views,
-                                    sample_views_bwd_mem)
+                                    flash_fwd_lse, sample_views_bwd_mem)
     from parq_torch.kernels.cross_attention import (
         cross_attention_kv_fused_plain, cross_attention_kv_fused_train_plain)
-    from parq_torch.kernels.pixel_align import (sample_views_bwd_mem_plain,
-                                                sample_views_plain)
+    from parq_torch.kernels.pixel_align import sample_views_bwd_mem_plain
     gen = torch.Generator(device="cuda").manual_seed(3)
     mem, uvs, g, q, kv = scaled_inputs(mcfg, gen)
-    errs = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        m = mem.to(dtype)
-        err = (sample_views(m, uvs) - sample_views_plain(m, uvs)
-               ).abs().max().item()
-        check(err <= 1e-4, f"scaled B1 {dtype}: max abs err {err} > 1e-4")
-        errs.setdefault("pixel_align_sample", err)
-        phase("kernels", f"scaled B1 {str(dtype)[6:]} {tuple(m.shape)} "
-              f"Q={uvs.shape[2]}: max abs err {err:.3e} (atol 1e-4)")
+    errs = {"pixel_align_sample": check_sampler("scaled", mem, uvs)}
     err = (flash_cross_attention_kv_fused(q, kv).float()
            - cross_attention_kv_fused_plain(q, kv).float()).abs().max().item()
     check(err <= 2e-2, f"scaled B2: max abs err {err} > 2e-2")
@@ -1918,21 +1971,20 @@ def scaled_kernels(mcfg):
     return errs
 
 
-def scaled_rows(mcfg, errs, counts):
+def scaled_rows(mcfg, errs, counts, b1_row):
     """The kernels' record at the scaled shapes: device ms (CUDA-graph
     replay; the library's dropout and backward by CUDA events), bound,
     plain and library ms; launches from the scaled phase's REMAT steps
-    (training kernels) and its eval forward (B2's eval form)."""
+    (training kernels) and its eval forward (B2's eval form). B1's row
+    comes timed from `sampler_rows`."""
     import torch.nn.functional as F
     from parq_torch.kernels import (flash_bwd, flash_cross_attention_kv_fused,
-                                    flash_fwd_lse, sample_views,
-                                    sample_views_bwd_mem)
+                                    flash_fwd_lse, sample_views_bwd_mem)
     from parq_torch.kernels.cross_attention import (
         _splits_for, cross_attention_kv_fused_bwd_plain,
         cross_attention_kv_fused_plain, cross_attention_kv_fused_train_plain,
         split_kv)
-    from parq_torch.kernels.pixel_align import (sample_views_bwd_mem_plain,
-                                                sample_views_plain)
+    from parq_torch.kernels.pixel_align import sample_views_bwd_mem_plain
     gen = torch.Generator(device="cuda").manual_seed(4)
     mem, uvs, g, q, kv = scaled_inputs(mcfg, gen)
     k, v = (t.contiguous() for t in split_kv(kv, mcfg.dec_heads))
@@ -1945,12 +1997,6 @@ def scaled_rows(mcfg, errs, counts):
     ol = F.scaled_dot_product_attention(ql, kl, vl)
     src = "parq_torch/csrc/"
     rows = [
-        dict(name="pixel_align_sample_scaled", kernel="pixel_align_sample",
-             source=src + "pixel_align.cu",
-             replaces="parq_tpu/kernels/pixel_align_pallas.py:168",
-             ms=device_ms(lambda: sample_views(mem, uvs), 50),
-             plain_ms=device_ms(lambda: sample_views_plain(mem, uvs), 10),
-             bound=(sampler_bound_ms(mem, uvs), "bytes"), library_ms=None),
         dict(name="flash_cross_attention_fwd_scaled",
              kernel="flash_cross_attention_fwd",
              source=src + "flash_fwd_sm90.cu",
@@ -1985,10 +2031,10 @@ def scaled_rows(mcfg, errs, counts):
         dict(name="pixel_align_bwd_mem_scaled", kernel="pixel_align_bwd_mem",
              source=src + "pixel_align_bwd.cu",
              replaces="parq_tpu/kernels/pixel_align_pallas.py:280",
-             ms=device_ms(lambda: sample_views_bwd_mem(uvs, g, mem.shape,
-                                                       mem.dtype), 20),
+             ms=device_ms(lambda: sample_views_bwd_mem(
+                 uvs, g.to(mem.dtype), mem.shape, mem.dtype), 20),
              plain_ms=device_ms(lambda: sample_views_bwd_mem_plain(
-                 uvs, g, mem.shape, mem.dtype), 3),
+                 uvs, g.to(mem.dtype), mem.shape, mem.dtype), 3),
              bound=sampler_bwd_bound(uvs, g, mem.shape, mem.dtype),
              library_ms=grid_sampler_bwd_ms(mem, uvs, g)),
     ]
@@ -1997,7 +2043,7 @@ def scaled_rows(mcfg, errs, counts):
           f"{tuple(q.shape)}, N={kv.shape[1]}")
     device_profile(lambda: flash_bwd(q, kv, do, lse, delta, s1, rate),
                    "scaled B3 launch (its two passes)", top=2)
-    out = []
+    out = [dict(b1_row, launches=counts["pixel_align_sample"])]
     for r in rows:
         kernel = r.pop("kernel")
         r["bound_ms"], r["bound_by"] = r.pop("bound")
@@ -3056,8 +3102,8 @@ def main():
         smi_line = phase_device()
         phase_build()
         cfg = ModelConfig(compute_dtype="bfloat16")
-        errs = phase_kernels(cfg)
         scaled_cfg = scaled_model_cfg()
+        errs, b1_rows = phase_kernels(cfg, scaled_cfg)
         scaled_errs = scaled_kernels(scaled_cfg)
         m1_rows = phase_matcher(cfg, scaled_cfg, smi_line)
         phase_native(smi_line)
@@ -3068,7 +3114,7 @@ def main():
         phase_train_parity(dataclasses.replace(cfg, share_weights=False),
                            "unshared")
         rows = phase_times(cfg, engine, counts, requests, train_counts,
-                           errs)
+                           errs, b1_rows["pixel_align_sample"])
         m1_rows[0]["launches"] = train_counts["lap_solve"]
         del engine
         torch.cuda.empty_cache()
@@ -3078,13 +3124,16 @@ def main():
         rows += split_rows(cfg, errs, sp_counts)
         torch.cuda.empty_cache()
         ckpt, _ = phase_fit(smi_line)
-        phase_eval(ckpt, smi_line)
+        _, eval_counts = phase_eval(ckpt, smi_line)
+        rows.append(dict(b1_rows["pixel_align_sample_eval"],
+                         launches=eval_counts["pixel_align_sample"]))
         phase_vis(smi_line)
         phase_serve_ckpt(ckpt)
         shutil.rmtree(CLI_DIR, ignore_errors=True)
         torch.cuda.empty_cache()
         scaled_counts = phase_scaled(smi_line)
-        rows += scaled_rows(scaled_cfg, scaled_errs, scaled_counts)
+        rows += scaled_rows(scaled_cfg, scaled_errs, scaled_counts,
+                            b1_rows["pixel_align_sample_scaled"])
         m1_rows[1]["launches"] = scaled_counts["lap_solve"]
         rows += m1_rows
         phase_export(smi_line)

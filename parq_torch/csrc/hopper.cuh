@@ -92,6 +92,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory, no tensor map; completes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // a tile of `kBoxes` boxes (columns c0, c0 + 64, ...) of `box_bytes` each
 template <int kBoxes>
 __device__ __forceinline__ void tma_load_tile(void* dst, int box_bytes,

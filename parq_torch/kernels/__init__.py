@@ -17,10 +17,13 @@ the SIMT and mma.sync kernels of ``csrc/cross_attention.cu``. B4
 (``csrc/pixel_align_bwd.cu``) is a per-pixel gather: one CTA per 8x8 tile
 of a map lists the query rows that touch the tile and each pixel sums its
 taps in f32 registers in q order and is written once in the memory's
-dtype: no scratch, no atomics, the same bits from run to run. M1
-(``csrc/lap.cu``) solves the matcher's assignments on the card, one CTA
-per (iteration, sample) pair, in JAX's f32 arithmetic: the train step no
-longer copies its costs to the host.
+dtype: no scratch, no atomics, the same bits from run to run. B1
+(``csrc/pixel_align.cu``) stages a CTA's (u, v) rows in shared memory and
+loads every view's taps before its first FMA; it writes the memory's
+dtype. M1 (``csrc/lap.cu``) solves the matcher's assignments on the card,
+one warp per (iteration, sample) pair on cost rows staged in shared
+memory, in JAX's f32 arithmetic: the train step no longer copies its
+costs to the host.
 
 The CLI twins (``parq_torch/cli``) and the config tree
 (``parq_torch/config``) changed no kernel: `Trainer.fit` launches B1,

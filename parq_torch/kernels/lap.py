@@ -5,8 +5,9 @@ M1 replaces parq_tpu/ops/hungarian.py:solve_lap (:24), the JAX package's
 Jonker–Volgenant search in `lax.while_loop`s, vmapped over the (iteration,
 sample) pairs of a step. It is not a Pallas kernel, but it is device code:
 with it the JAX step never waits on the host. `solve_lap` launches the CUDA
-kernel for a CUDA tensor (or raises) and runs `solve_lap_plain` for a CPU
-tensor. Both follow JAX's f32 arithmetic step for step (INF = 1e18, the
+kernel (one warp a problem, its cost rows staged in shared memory as far
+as the card's budget allows: `smem_plan`) for a CUDA tensor (or raises)
+and runs `solve_lap_plain` for a CPU tensor. Both follow JAX's f32 arithmetic step for step (INF = 1e18, the
 first index wins a tie, the dual updates before the augmentation), so
 col4row equals JAX's exactly, ties included.
 """
@@ -20,13 +21,26 @@ import torch
 from . import _build
 
 INF = 1e18                 # parq_tpu/ops/hungarian.py:21
-SMEM_LIMIT = 48 * 1024     # the kernel's dynamic shared memory, at most
+MAX_CHUNKS = 32            # mbarriers of a problem's staged rows (lap.cu)
+REG_COLUMNS = 32 * 32      # columns whose state lives in registers
+PAD = REG_COLUMNS * 4      # bytes after the staged rows (lap.cu: kPad)
 
 
-def smem_bytes(R: int, C: int) -> int:
-    """Shared memory of one CTA: spc, v, path, row4col and SC over the
-    columns, u, col4row and SR over the rows (csrc/lap.cu)."""
-    return C * (4 * 4 + 1) + R * (4 * 2 + 1)
+def smem_plan(R: int, C: int, budget: int, whole_rows: bool = True):
+    """(fixed bytes, rows staged) of one problem's CTA, as csrc/lap.cu
+    plans it: the fixed part is the mbarriers, a pad after the rows,
+    row4col and the steps' records over the columns, u and col4row over
+    the rows, and past REG_COLUMNS columns the lanes' column state (13
+    bytes a column); the first rows of the problem are staged in what
+    `budget` (the card's opt-in shared memory per block) leaves, the rest
+    read from global memory. `whole_rows`: a row is a multiple of 16 bytes
+    at a 16-byte address (else nothing is staged)."""
+    slots = -(-C // 32)
+    fixed = MAX_CHUNKS * 8 + PAD + C * 12 + R * 8 \
+        + (slots * 32 * 13 if C > REG_COLUMNS else 0)
+    if not whole_rows or C % 4 or fixed > budget:
+        return fixed, 0
+    return fixed, min(R, (budget - fixed) // (C * 4))
 
 
 def solve_lap_plain(cost: torch.Tensor, n_rows: torch.Tensor,
@@ -143,9 +157,12 @@ def solve_lap(cost: torch.Tensor, n_rows: torch.Tensor) -> torch.Tensor:
     if R > C or R < 1:
         raise ValueError(f"solve_lap: needs 1 <= rows <= columns, got "
                          f"{R} x {C}")
-    if smem_bytes(R, C) > SMEM_LIMIT:
-        raise ValueError(f"solve_lap: {R} x {C} needs {smem_bytes(R, C)} "
-                         f"bytes of shared memory, more than {SMEM_LIMIT}")
+    budget = torch.cuda.get_device_properties(
+        cost.device).shared_memory_per_block_optin
+    fixed, _ = smem_plan(R, C, budget)
+    if fixed > budget:
+        raise ValueError(f"solve_lap: {R} x {C} needs {fixed} bytes of "
+                         f"shared memory, more than the card's {budget}")
     if n_rows.dtype != torch.int32 or tuple(n_rows.shape) != (P,) \
             or n_rows.device != cost.device or not n_rows.is_contiguous():
         raise ValueError(f"solve_lap: n_rows must be ({P},) int32 on "

@@ -11,7 +11,10 @@ land on it and is written once. Each wrapper (`sample_views`,
 raises) and runs its plain version for a CPU tensor. B1 is the custom op
 ``parq::sample_views`` (a CUDA implementation that launches the kernel, a
 CPU one that is the plain version, a fake one for shapes), so an exported
-program (`parq_torch.export`) launches it as the live model does.
+program (`parq_torch.export`) launches it as the live model does. B1
+returns the memory's dtype (f32 sums rounded once at the store; JAX's
+kernel writes f32 and its caller casts), so in training the cotangent
+reaches B4 in that dtype and B4's wrapper casts nothing.
 
 The training entries mirror the JAX package's custom VJPs:
 `pixel_aligned_features_train` (forward B1, backward B4;
@@ -48,8 +51,9 @@ def project_uvs(query_pos: torch.Tensor, T_camera_local: Pose,
 
 def sample_views_plain(memory: torch.Tensor, uvs: torch.Tensor
                        ) -> torch.Tensor:
-    """Plain version of kernel B1: memory (B, T, H, W, C), uvs
-    (B, T, Q, 4) → (B, Q, C) float32."""
+    """Plain version of kernel B1's sums: memory (B, T, H, W, C), uvs
+    (B, T, Q, 4) → (B, Q, C) float32 (`sample_views` on the CPU casts them
+    to the memory's dtype)."""
     B, T, H, W, C = memory.shape
     Q = uvs.shape[2]
     feats = sample_bilinear_pixels(memory.reshape(B * T, H, W, C),
@@ -61,7 +65,7 @@ def _lib():
     lib = _build.load("pixel_align")
     fn = lib.parq_sample_views
     if fn.argtypes is None:   # declare once: pointers must not pass as int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -69,27 +73,46 @@ def _lib():
 
 def sample_views(memory: torch.Tensor, uvs: torch.Tensor) -> torch.Tensor:
     """Kernel B1. memory (B, T, H, W, C) bf16 or f32, uvs (B, T, Q, 4) f32
-    → (B, Q, C) f32. CPU tensors take the plain version. It runs through
-    the custom op ``parq::sample_views``, so `torch.export` keeps the
-    launch in an exported program."""
+    → (B, Q, C) in the memory's dtype: f32 sums, rounded to bf16 (to
+    nearest even) once at the store for a bf16 memory, the same bits as
+    `sample_views_sums(...).to(torch.bfloat16)`. CPU tensors take the
+    plain version, cast the same way. It runs through the custom op
+    ``parq::sample_views``, so `torch.export` keeps the launch in an
+    exported program."""
     return torch.ops.parq.sample_views(memory, uvs)
+
+
+def sample_views_sums(memory: torch.Tensor, uvs: torch.Tensor
+                      ) -> torch.Tensor:
+    """Kernel B1 with its f32 sums written before any rounding: (B, Q, C)
+    f32 whatever the memory's dtype. What checks hold against the plain
+    version and across versions of the kernel; the model's path calls
+    `sample_views`. CPU tensors take the plain version."""
+    if memory.device.type == "cpu":
+        return sample_views_plain(memory, uvs)
+    return _sample_views_launch(memory, uvs, torch.float32)
 
 
 @torch.library.custom_op("parq::sample_views", mutates_args=())
 def _sample_views_op(memory: torch.Tensor, uvs: torch.Tensor
                      ) -> torch.Tensor:
-    return sample_views_plain(memory, uvs)
+    return sample_views_plain(memory, uvs).to(memory.dtype)
 
 
 @_sample_views_op.register_fake
 def _(memory, uvs):
     B, T, H, W, C = memory.shape
-    return memory.new_empty((B, uvs.shape[2], C), dtype=torch.float32)
+    return memory.new_empty((B, uvs.shape[2], C))
 
 
 @_sample_views_op.register_kernel("cuda")
 def _sample_views_cuda(memory: torch.Tensor, uvs: torch.Tensor
                        ) -> torch.Tensor:
+    return _sample_views_launch(memory, uvs, memory.dtype)
+
+
+def _sample_views_launch(memory: torch.Tensor, uvs: torch.Tensor,
+                         out_dtype: torch.dtype) -> torch.Tensor:
     B, T, H, W, C = memory.shape
     Q = uvs.shape[2]
     if memory.dtype not in (torch.bfloat16, torch.float32):
@@ -100,13 +123,13 @@ def _sample_views_cuda(memory: torch.Tensor, uvs: torch.Tensor
         raise ValueError("sample_views: memory and uvs on different devices")
     if C % 8 or not memory.is_contiguous() or not uvs.is_contiguous():
         raise ValueError("sample_views: needs contiguous inputs and C % 8 == 0")
-    out = torch.empty((B, Q, C), dtype=torch.float32, device=memory.device)
+    out = torch.empty((B, Q, C), dtype=out_dtype, device=memory.device)
     if any(t.data_ptr() % 16 for t in (memory, uvs, out)):
         raise ValueError("sample_views: inputs must be 16-byte aligned")
     stream = torch.cuda.current_stream(memory.device).cuda_stream
     err = _lib()(memory.data_ptr(), uvs.data_ptr(), out.data_ptr(),
                  B, T, H, W, C, Q, int(memory.dtype == torch.bfloat16),
-                 stream)
+                 int(out_dtype != memory.dtype), stream)
     if err:
         raise RuntimeError(f"sample_views: CUDA launch failed, error {err}")
     sample_views.launches += 1
@@ -131,7 +154,7 @@ def pixel_aligned_features_kernel(
     uvs, center_im, center_valid = project_uvs(query_pos, T_camera_local,
                                                camera)
     feats = sample_views(memory_hw.contiguous(), uvs)
-    return feats.to(memory_hw.dtype), center_im, center_valid
+    return feats, center_im, center_valid
 
 
 def sample_views_bwd_mem_plain(uvs: torch.Tensor, g: torch.Tensor,
@@ -263,7 +286,7 @@ def pixel_aligned_features_train(
     uvs, center_im, center_valid = project_uvs(query_pos, T_camera_local,
                                                camera)
     feats = _SampleTrain.apply(memory_hw.contiguous(), uvs, diff_rows)
-    return feats.to(memory_hw.dtype), center_im, center_valid
+    return feats, center_im, center_valid
 
 
 def pixel_aligned_features_precomputed(
@@ -282,5 +305,6 @@ def pixel_aligned_features_precomputed(
     uvs, center_im, center_valid = project_uvs(query_pos, T_camera_local,
                                                camera)
     feats = _SamplePrecomputed.apply(memory_hw.contiguous(), uvs,
-                                     feats_pre.detach().float(), diff_rows)
-    return feats.to(memory_hw.dtype), center_im, center_valid
+                                     feats_pre.detach().to(memory_hw.dtype),
+                                     diff_rows)
+    return feats, center_im, center_valid

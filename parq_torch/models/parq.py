@@ -77,8 +77,8 @@ class PARQModel(nn.Module):
         """batch: rgb_img (B, T, H, W, 3) in [0, 1], camera (B, T, 6),
         T_camera_pseudoCam / T_world_pseudoCam (B, T, 12),
         T_world_local (B, 1, 12). bf16 runs under autocast; geometry,
-        norms' statistics, the sampler's sums and the heads' outputs stay
-        f32. `deterministic=False` is the training forward, with the
+        norms' statistics, the sampler's sums (rounded once to bf16 at its
+        output) and the heads' outputs stay f32. `deterministic=False` is the training forward, with the
         decoder's dropout drawn from `generator`. Returns the decoder's
         outputs; with `return_feature_map`, (outputs, the token memory
         (B, T, h, w, C): backbone features plus the ray encoding, what the

@@ -19,7 +19,8 @@ from parq_torch.kernels.cross_attention import (
     cross_attention_kv_fused_plain, cross_attention_kv_fused_train_plain,
     split_bounds, wgmma_selftest)
 from parq_torch.kernels.pixel_align import (sample_views_bwd_mem_plain,
-                                            sample_views_plain)
+                                            sample_views_plain,
+                                            sample_views_sums)
 
 pytestmark = pytest.mark.cuda
 
@@ -45,8 +46,66 @@ def test_sampler_kernel_matches_plain(gen, dtype):
     got = sample_views(mem, uvs)
     torch.cuda.synchronize()
     assert sample_views.launches == before + 1
-    torch.testing.assert_close(got, sample_views_plain(mem, uvs), rtol=0,
+    assert got.dtype == dtype              # B1 writes the memory's dtype
+    sums = sample_views_sums(mem, uvs)
+    torch.testing.assert_close(sums, sample_views_plain(mem, uvs), rtol=0,
                                atol=1e-4)
+    assert torch.equal(got, sums.to(dtype))
+
+
+def _sampler_case(gen, B, T, C, case, H=12, W=16, Q=40):
+    """(u, v, scale) rows over and around an H x W map, none with a tap on
+    pixel (0, 0): "mixed" (inside, on the edges and off them, a point
+    behind the camera far off), "off" (every tap off the image), "behind"
+    (every view of half the queries projected from behind the camera:
+    coordinates near the float range's ends)."""
+    uv = torch.rand(B, T, Q, 2, device="cuda", generator=gen)
+    uv = uv * torch.tensor([W + 6.0, H + 6.0], device="cuda") - 3.0
+    near = (uv > -1.0) & (uv < 1.0)      # no tap on pixel (0, 0)
+    uv[..., 0] += 3.0 * (near[..., 0] & near[..., 1])
+    uv[:, :, 0] = torch.tensor([W - 1.0, 0.0], device="cuda")
+    uv[:, :, 1] = torch.tensor([0.0, H - 1.0], device="cuda")
+    if case == "mixed":
+        uv[:, 0, 2] = torch.tensor([-3e9, 1e30], device="cuda")
+    elif case == "off":
+        uv = uv + torch.tensor([W + 4.0, 0.0], device="cuda")
+    elif case == "behind":
+        uv[:, :, ::2] = torch.tensor([3e38, -1e38], device="cuda")
+    scale = torch.rand(B, 1, Q, 1, device="cuda", generator=gen)
+    return torch.cat([uv, scale.expand(B, T, Q, 1),
+                      torch.zeros(B, T, Q, 1, device="cuda")], -1).contiguous()
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("T", [1, 3, 6])
+@pytest.mark.parametrize("C", [8, 64, 1024])
+def test_sampler_kernel_at_batch_views_and_widths(gen, B, T, C):
+    """B1 at B 1 and 8, 1, 3 and 6 views (the kernel loads 3 or 6 views'
+    taps before its first FMA), 8 to 1024 channels (1 to 128 threads a
+    query): bf16 and f32 against the plain version (the f32 sums to 1e-4),
+    the bf16 output equal to its f32 sums rounded by torch, two launches
+    equal bit for bit; every tap off the image and points behind the
+    camera give exact zeros where no view has a tap inside. Pixel (0, 0),
+    where an off-image tap's clamped address would land, is NaN: the
+    kernel skips such a tap's load, so the NaN never reaches a sum."""
+    for case in ("mixed", "off", "behind"):
+        uvs = _sampler_case(gen, B, T, C, case)
+        mem32 = torch.randn(B, T, 12, 16, C, device="cuda", generator=gen)
+        mem32[:, :, 0, 0] = float("nan")
+        for dtype in (torch.float32, torch.bfloat16):
+            mem = mem32.to(dtype)
+            got = sample_views(mem, uvs)
+            assert got.dtype == dtype and got.shape == (B, 40, C)
+            assert torch.equal(got, sample_views(mem, uvs))
+            sums = sample_views_sums(mem, uvs)
+            want = sample_views_plain(mem.nan_to_num(0.0), uvs)
+            assert torch.isfinite(sums).all(), case
+            torch.testing.assert_close(sums, want, rtol=0, atol=1e-4)
+            assert torch.equal(got, sums.to(dtype))
+            if case == "off":
+                assert not got.any()
+            if case == "behind":
+                assert not got[:, ::2].any()
 
 
 # The Hopper (wgmma + TMA) kernels take bf16 at D = 256. Their shapes: the
@@ -483,6 +542,50 @@ def test_lap_kernel_on_tied_transposed_problem(gen):
     n_rows = torch.full((P,), R, dtype=torch.int32, device="cuda")
     got = solve_lap(cost.contiguous(), n_rows)
     assert torch.equal(got.cpu(), solve_lap_plain(cost.cpu(), n_rows.cpu()))
+
+
+def _solve_both(cost, n_rows):
+    from parq_torch.kernels.lap import solve_lap, solve_lap_plain
+    got = solve_lap(cost.contiguous(), n_rows)
+    torch.cuda.synchronize()
+    return got.cpu(), solve_lap_plain(cost.cpu(), n_rows.cpu())
+
+
+@pytest.mark.parametrize("C", [1, 31, 32, 33, 256, 1000])
+def test_lap_kernel_at_every_column_count(gen, C):
+    """M1 at 1 to 1000 columns (1 to 32 columns a lane in registers; rows
+    not a whole number of 16-byte units are read from global memory):
+    R = C all searched, n_rows 0, and crowded ties (integer costs, flat
+    and duplicated columns); col4row equal to the plain version bit for
+    bit."""
+    R = C
+    cost = torch.rand((3, R, C), device="cuda", generator=gen) * 3 - 2
+    ties = torch.randint(0, 3, (R, C), device="cuda", generator=gen).float()
+    if C > 3:
+        ties[:, C - 3:] = 1e4
+        ties[:, 1] = ties[:, 0]
+    cost[2] = ties
+    n_rows = torch.tensor([R, 0, R], dtype=torch.int32, device="cuda")
+    got, want = _solve_both(cost, n_rows)
+    assert torch.equal(got, want)
+    assert (got[1] == -1).all() and (got[0] >= 0).all()
+
+
+def test_lap_kernel_past_the_shared_memory_budget(gen):
+    """Problems whose rows do not all fit the card's shared memory: the
+    first rows are staged, the rest read from global memory in the same
+    kernel; 2100 columns keep the lanes' column state in shared memory."""
+    from parq_torch.kernels.lap import smem_plan
+    budget = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for R, C in ((1000, 1000), (300, 2100)):
+        fixed, staged = smem_plan(R, C, budget)
+        assert fixed <= budget and staged < R
+        cost = torch.rand((2, R, C), device="cuda", generator=gen)
+        cost[1, :, ::7] = cost[1, :, :1]            # ties across the rows
+        n_rows = torch.tensor([R, R // 2 + 3], dtype=torch.int32,
+                              device="cuda")
+        got, want = _solve_both(cost, n_rows)
+        assert torch.equal(got, want), (R, C)
 
 
 def test_match_batch_on_the_card_syncs_nothing(gen):

@@ -22,7 +22,8 @@ from parq_torch.kernels import (flash_cross_attention_kv_fused,
 from parq_torch.kernels.cross_attention import (
     MAX_SPLITS, cross_attention_kv_fused_split_plain, kv_splits,
     split_bounds, split_kv)
-from parq_torch.kernels.pixel_align import project_uvs, sample_views_plain
+from parq_torch.kernels.pixel_align import (project_uvs, sample_views_plain,
+                                            sample_views_sums)
 from parq_torch.ops.pixel_align import pixel_aligned_features
 
 ATOL = 1e-5
@@ -73,6 +74,81 @@ def test_sampler_matches_jax(rng, case):
         assert not got_valid.any()
     else:
         assert got_valid.any()
+
+
+@pytest.mark.parametrize("T", [3, 6])
+@pytest.mark.parametrize("case", ["mixed", "behind", "off_image"])
+def test_sampler_matches_jax_at_batch_1(rng, T, case):
+    """B=1, the eval twin's and the scaled config's batch, at their view
+    counts (3 and 6): the port's sampler (plain sums through the kernel's
+    wrapper) against JAX's op and its Pallas kernel in interpret mode."""
+    feats, q, tcl, cam, fs = _scene(rng, case, B=1, T=T, Q=20)
+    jargs = (jnp.asarray(feats), jnp.asarray(q), JPose(jnp.asarray(tcl)),
+             JCamera(jnp.asarray(cam)), fs)
+    want, _, want_valid = j_sampler(*jargs)
+    pallas, _, _ = pixel_aligned_features_pallas(*jargs, force=True)
+    got, _, got_valid = pixel_aligned_features_kernel(
+        torch.from_numpy(feats), torch.from_numpy(q),
+        Pose(torch.from_numpy(tcl)), Camera(torch.from_numpy(cam)), fs)
+    assert got.dtype == torch.float32 and got.shape == (1, 20, feats.shape[-1])
+    for ref in (want, pallas):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+                                   rtol=0)
+    np.testing.assert_array_equal(got_valid.numpy(), np.asarray(want_valid))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sample_views_returns_the_memory_dtype(rng, dtype):
+    """B1 writes the memory's dtype: on the CPU the f32 plain sums cast
+    once, bit for bit (on the card the kernel rounds its f32 sums the same
+    way, tests/test_torch_cuda.py). The features of the model's sampler
+    entries come back in that dtype with no further cast."""
+    feats, q, tcl, cam, fs = _scene(rng, "mixed", B=1, T=3, Q=16)
+    uvs, _, _ = project_uvs(torch.from_numpy(q), Pose(torch.from_numpy(tcl)),
+                            Camera(torch.from_numpy(cam)))
+    mem = torch.from_numpy(feats).to(dtype)
+    got = sample_views(mem, uvs)
+    assert got.dtype == dtype
+    sums = sample_views_plain(mem, uvs)
+    assert sums.dtype == torch.float32
+    assert torch.equal(got, sums.to(dtype))
+    assert torch.equal(sample_views_sums(mem, uvs), sums)
+    feats_k, _, _ = pixel_aligned_features_kernel(
+        mem, torch.from_numpy(q), Pose(torch.from_numpy(tcl)),
+        Camera(torch.from_numpy(cam)), fs)
+    assert feats_k.dtype == dtype and torch.equal(feats_k, got)
+
+
+def test_sampler_train_entry_hands_b4_the_memory_dtype(rng, monkeypatch):
+    """In training the sampler's cotangent reaches B4's wrapper in the
+    memory's dtype (so its cast of g copies nothing), and the gradients
+    equal those through an f32 output cast afterwards, bit for bit."""
+    from parq_torch.kernels import pixel_align as pa
+    feats, q, tcl, cam, fs = _scene(rng, "mixed", B=1, T=3, Q=16)
+    mem = torch.from_numpy(feats).bfloat16().requires_grad_(True)
+    qp = torch.from_numpy(q).requires_grad_(True)
+    seen = []
+    bwd = pa.sample_views_bwd_mem
+
+    def watched(uvs, g, mem_shape, dtype):
+        seen.append(g.dtype)
+        return bwd(uvs, g, mem_shape, dtype)
+    monkeypatch.setattr(pa, "sample_views_bwd_mem", watched)
+    g = torch.from_numpy(rng.randn(1, 16, feats.shape[-1]).astype(np.float32))
+    out, _, _ = pa.pixel_aligned_features_train(
+        mem, qp, Pose(torch.from_numpy(tcl)), Camera(torch.from_numpy(cam)),
+        fs)
+    assert out.dtype == torch.bfloat16
+    dmem, dq = torch.autograd.grad(out, (mem, qp), g.bfloat16())
+    assert seen == [torch.bfloat16]
+    # the same through the f32 sums, cast to bf16 after the custom function
+    uvs, _, _ = project_uvs(qp, Pose(torch.from_numpy(tcl)),
+                            Camera(torch.from_numpy(cam)))
+    ref = pa._sampler_backward(mem.detach(), uvs.detach(),
+                               g.bfloat16().float(), None)
+    assert torch.equal(dmem, ref[0])
+    want_dq, = torch.autograd.grad(uvs, qp, ref[1])
+    assert torch.equal(dq, want_dq)
 
 
 def test_sampler_sums_invalid_views(rng):

@@ -117,9 +117,28 @@ def test_solve_lap_takes_the_plain_version_on_the_cpu():
         solve_lap_plain(cost.transpose(1, 2), n)   # more rows than columns
 
 
+H100_OPTIN = 232448        # shared memory a block may opt into (H100)
+
+
 def test_shared_memory_limit_is_checked():
-    assert lap.smem_bytes(100, 256) < 8 * 1024      # the release problem
-    assert lap.smem_bytes(100, 4096) > lap.SMEM_LIMIT
+    # the release problem (100 targets x 256 queries): every row staged
+    fixed, rows = lap.smem_plan(100, 256, H100_OPTIN)
+    assert fixed < 12 * 1024 and rows == 100
+    assert fixed + rows * 256 * 4 <= H100_OPTIN
+    # R = C = 1000: the budget stages the first rows, the rest are read
+    # from global memory
+    fixed, rows = lap.smem_plan(1000, 1000, H100_OPTIN)
+    assert 0 < rows < 1000 and fixed + rows * 4000 <= H100_OPTIN
+    assert fixed + (rows + 1) * 4000 > H100_OPTIN
+    # rows that are not whole 16-byte units are all read from global memory
+    assert lap.smem_plan(31, 33, H100_OPTIN)[1] == 0
+    assert lap.smem_plan(8, 8, H100_OPTIN, whole_rows=False)[1] == 0
+    # past 1024 columns the lanes' column state moves to shared memory
+    assert lap.smem_plan(100, 2048, H100_OPTIN)[0] \
+        > lap.smem_plan(100, 1024, H100_OPTIN)[0] + 2048 * 13
+    # a problem whose bookkeeping alone exceeds the budget
+    fixed, rows = lap.smem_plan(100, 16384, H100_OPTIN)
+    assert fixed > H100_OPTIN and rows == 0
 
 
 def _crowded_inputs(rng, LB, Q, K, n_valid):
