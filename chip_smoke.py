@@ -164,9 +164,28 @@ Phases, each printed on its own line; any failure exits non-zero:
  18. fit-sp  — the train twin under `torchrun --standalone --nproc_per_node
                2` (gloo), TPU.SEQ_PARALLEL True, MESH_MODEL 2, B=8: 2 steps,
                1 validation, the checkpoint written once (by rank 0), the
-               final validation; every rank must exit 0. The files of the
-               CLI, scaled, export, fit-sp, tp and vis phases under build/
-               are deleted at the end.
+               final validation; every rank must exit 0;
+ 19. bench   — `python -m parq_torch.bench` and `--train` (the twin of
+               bench.py) in processes of their own at their default flags
+               (B=8 bf16, 30 iterations): each prints one JSON line with
+               bench.py's keys and the card's name, the host CPU,
+               device_busy_ms and wall_ms; the rate above 0 and below the
+               plausibility guard (bf16 peak over the forward's FLOPs a
+               frame; half that for a step); per iteration B1 and B2 8
+               launches a forward and a step's those of [train];
+ 20. rehearsal — a checkpoint in parq_release.ckpt's key layout from
+               `parq_torch.tools.release_ckpt` (dead norm, BatchNorm
+               counters, random BatchNorm statistics) loaded strictly by
+               `python -m parq_torch.cli.eval --cfg configs/eval.yaml
+               --CHECKPOINT_PATH ...` (CONF_THRESH 0.05, the real mean-size
+               table, LIMIT_VAL_BATCHES 2, 2 synthetic snippets of one
+               scene), f32 with TF32 off, on the card and on the CPU:
+               every iteration's outputs within 1.5e-3·2.8^l (sizes over
+               their own mean row, an argmax flip only at a near-tie), the
+               F1 dicts within 0.15, per snippet B1 8, B2 8 and M1 1
+               launches, M1 on the loss's 100 targets.
+               The files of the CLI, scaled, export, fit-sp, tp, vis and
+               rehearsal phases under build/ are deleted at the end.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the parq_torch
 package beside this file, it exits non-zero and prints no result.
@@ -955,32 +974,21 @@ def phase_parity(cfg):
 
 
 def device_profile(run, label, top=8, label_phase="times"):
-    """One call of `run` under torch.profiler: device time by kernel name,
-    and the device's busy share of the profiled call's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # the tracer can miss the first kernel after it starts: give it one
-        torch.zeros(1, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy_ms = sum(ms for _, ms, _ in kernels)
-    if not kernels:
+    """One call of `run` under torch.profiler (`tools/profiling.py`):
+    device time by kernel name, and the device's busy share of the
+    profiled call's wall time."""
+    from parq_torch.tools.profiling import device_profile as profile_call
+    prof = profile_call(run)
+    if prof is None:
         phase(label_phase, f"profiler saw no device time in the {label}: "
               "breakdown not measured")
         return
+    wall_ms, busy_ms, kernels = prof["wall_ms"], prof["busy_ms"], \
+        prof["kernels"]
     phase(label_phase, f"profiled {label}: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"{len(kernels)} kernel names")
-    for name, ms, n in sorted(kernels, key=lambda k: -k[1])[:top]:
+    for name, ms, n in kernels[:top]:
         phase(label_phase, f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% x{n} "
               f"{name[:90]}")
 
@@ -1665,6 +1673,7 @@ def grid_sampler_bwd_ms(mem, uvs, g):
 
 
 CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
+TRAIN_STEPS = 5     # the release steps of [train]
 NO_KERNELS = {"pixel_align_sample": 0, "flash_cross_attention_fwd": 0,
               "flash_cross_attention_fwd_train": 0,
               "flash_cross_attention_bwd": 0, "pixel_align_bwd_mem": 0,
@@ -3078,6 +3087,229 @@ def phase_vis(smi_line):
     shutil.rmtree(VIS_DIR, ignore_errors=True)
 
 
+# ------------------------------------------- the bench twin, the rehearsal --
+BENCH_KEYS = {"metric", "value", "unit", "device", "host_cpu",
+              "device_busy_ms", "wall_ms", "launches_per_iter"}
+REHEARSAL_DIR = os.path.join(ROOT, "build", "chip_smoke_rehearsal")
+REHEARSAL_KEYS = ("pred_logits", "center_unnormalized", "size_unnormalized",
+                  "ortho6d", "coord_pos")
+
+
+def run_bench(*flags, timeout=400):
+    """`python -m parq_torch.bench [flags]` in a process of its own: its
+    one JSON line and its seconds; a non-zero exit fails the run."""
+    cmd = [sys.executable, "-m", "parq_torch.bench", *flags]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"bench {flags}: no line in {timeout} s")
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"bench {flags}: exit {res.returncode}:\n"
+          f"{res.stderr[-3000:]}")
+    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
+    check(len(lines) == 1, f"bench {flags}: {len(lines)} lines, want one: "
+          f"{res.stdout[-2000:]}")
+    return json.loads(lines[0]), wall
+
+
+def phase_bench(cfg, train_counts, train_steps, smi_line):
+    """The bench twin at its default flags, eval and --train: its keys,
+    a rate above 0 and below the plausibility guard, and its kernels'
+    launches per iteration (B1 and B2 L each a forward; a step's those of
+    `phase_train`)."""
+    from parq_torch.bench import guard_fps
+    from parq_torch.kernels import SERVE_KERNELS
+    torch.cuda.empty_cache()
+    runs = {}
+    for train in (False, True):
+        out, wall = run_bench(*(["--train"] if train else []))
+        metric = ("train_frames_per_sec_per_chip" if train
+                  else "multi_view_frames_per_sec_per_chip")
+        keys = BENCH_KEYS | ({"vs_baseline"} if not train else set())
+        check(set(out) == keys and out["metric"] == metric
+              and out["unit"] == "frames/sec/chip",
+              f"bench: line {out}, want the keys {sorted(keys)}")
+        guard = guard_fps(cfg, train)
+        check(0 < out["value"] < guard, f"bench: {metric} {out['value']} "
+              f"outside (0, {guard:.0f})")
+        check(out["device_busy_ms"] is not None
+              and 0 < out["device_busy_ms"] < 1e3 * out["wall_ms"],
+              f"bench: device_busy_ms {out['device_busy_ms']}, wall_ms "
+              f"{out['wall_ms']}")
+        if train:
+            want = {k: v / train_steps for k, v in train_counts.items() if v}
+        else:
+            want = {k: float(cfg.dec_layers) for k in SERVE_KERNELS}
+        check(out["launches_per_iter"] == want, f"bench: {metric} "
+              f"launches per iteration {out['launches_per_iter']}, want "
+              f"{want}")
+        runs[metric] = (out, wall)
+        phase("bench", f"[{smi_line}] {json.dumps(out)}")
+    phase("bench", ", ".join(f"{m} {w:.1f} s" for m, (_, w)
+                             in runs.items())
+          + f" (phase {sum(w for _, w in runs.values()):.1f} s); guard "
+          f"{guard_fps(cfg):.0f} frames/s (eval), "
+          f"{guard_fps(cfg, True):.0f} (train)")
+
+
+def iteration_gaps(got, want, mean_tab, L, label):
+    """The release rehearsal's envelope: per iteration l every output
+    within 1.5e-3·2.8^l of `want`'s, sizes divided by their own mean row
+    and an argmax flip allowed only where `want`'s logit gap is below
+    twice that. Returns each iteration's worst error and its output."""
+    worst = []
+    for l in range(L):
+        tol = 1.5e-3 * (2.8 ** l)
+        errs = {}
+        for key in REHEARSAL_KEYS:
+            ours, theirs = got[key][l], want[key][l]
+            if key == "size_unnormalized":
+                lo, lt = got["pred_logits"][l], want["pred_logits"][l]
+                ao, at = lo.argmax(-1), lt.argmax(-1)
+                errs[key] = float(np.max(np.abs(ours / mean_tab[ao]
+                                                - theirs / mean_tab[at])))
+                flips = ao != at
+                if flips.any():
+                    gap = np.abs(np.take_along_axis(lt, ao[..., None], -1)
+                                 - np.take_along_axis(lt, at[..., None], -1)
+                                 )[..., 0][flips]
+                    check(gap.max() < 2 * tol, f"{label} iteration {l}: an "
+                          f"argmax flip with logit gap {gap.max()} >= "
+                          f"{2 * tol} (not a near-tie)")
+            else:
+                errs[key] = float(np.max(np.abs(ours - theirs)))
+            check(errs[key] < tol, f"{label} iteration {l} {key}: max abs "
+                  f"err {errs[key]} >= {tol}")
+        worst.append(max((e, k) for k, e in errs.items()))
+    return worst
+
+
+def phase_rehearsal(smi_line):
+    """The release dress rehearsal on the card: a checkpoint in
+    parq_release.ckpt's layout (`synthesize_release_checkpoint`) loaded
+    strictly by the eval twin on configs/eval.yaml (CONF_THRESH 0.05, the
+    real mean-size table, LIMIT_VAL_BATCHES 2, 2 synthetic snippets of one
+    scene), f32 with TF32 off, on the card and on the CPU: every
+    iteration's outputs within the rehearsal's envelope, the F1 dicts
+    within 0.15, and per snippet B1 8, B2 8 and M1 1 launch, M1 on the
+    loss's 100 targets."""
+    from parq_torch import data as pdata
+    from parq_torch.cli import eval as cli_eval
+    from parq_torch.geometry.obb import MAX_BOXES
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.models.box_processor import load_mean_size_table
+    from parq_torch.ops import hungarian
+    from parq_torch.tools.release_ckpt import synthesize_release_checkpoint
+    from parq_torch.train import loop
+    shutil.rmtree(REHEARSAL_DIR, ignore_errors=True)
+    os.makedirs(REHEARSAL_DIR)
+    t0 = time.perf_counter()
+    ckpt = synthesize_release_checkpoint(
+        os.path.join(REHEARSAL_DIR, "fake_parq_release.ckpt"), seed=0)
+    table = os.path.join(ROOT, "data", "average_scan2cad.txt")
+    opts = ["DATAMODULE.DATA_PATH", "synthetic",
+            "MODEL.DECODER.CONF_THRESH", "0.05",
+            "MODEL.DECODER.MEAN_SIZE_PATH", table, "LOG_IMAGES", "False",
+            "TRAINER.LIMIT_VAL_BATCHES", "2", "LOG_PATH", REHEARSAL_DIR,
+            "NAME", "rehearsal"]
+    dataset, eval_step, solve, finish = (
+        pdata.SyntheticDataset, loop.eval_step, hungarian.solve_lap,
+        loop.finish_parse_pred)
+    captured, problems, kept = [], [], []
+
+    def one_scene(**kw):
+        return dataset(**dict(kw, num_snippets=2, scenes=1))
+
+    def capture_step(*a, **k):
+        losses, outputs = eval_step(*a, **k)
+        captured.append({k: v.float().cpu().numpy()
+                         for k, v in outputs.items()})
+        return losses, outputs
+
+    def watched_solve(cost, n_rows):
+        problems.append(tuple(cost.shape))
+        return solve(cost, n_rows)
+
+    def counted_finish(*a, **k):
+        # the predictions F1 scores: kept by NMS, not background, above
+        # CONF_THRESH
+        host = finish(*a, **k)
+        prob = host["sem_cls_prob"]
+        kept.append(int((host["pred_mask"]
+                         & (prob.argmax(-1) != prob.shape[-1] - 1)
+                         & (prob.max(-1) > 0.05)).sum()))
+        return host
+
+    runs, counts, seconds = {}, {}, {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    patched = (one_scene, capture_step, watched_solve, counted_finish)
+    (pdata.SyntheticDataset, loop.eval_step, hungarian.solve_lap,
+     loop.finish_parse_pred) = patched
+    try:
+        for dev in ("cuda", "cpu"):
+            captured.clear()
+            problems.clear()
+            kept.clear()
+            text = io.StringIO()
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                metrics = cli_eval.main([
+                    "--cfg", os.path.join(ROOT, "configs", "eval.yaml"),
+                    "--CHECKPOINT_PATH", ckpt, *opts,
+                    *(["TPU.PLATFORM", "cpu"] if dev == "cpu" else [])])
+            seconds[dev] = time.perf_counter() - t1
+            counts[dev] = (launch_counts(), list(problems), sum(kept))
+            check(len(captured) == 2 and sum(kept) > 0, f"rehearsal {dev}: "
+                  f"{len(captured)} snippets evaluated (want 2), {kept} "
+                  "predictions through NMS (want some)")
+            runs[dev] = (metrics, list(captured))
+    finally:
+        (pdata.SyntheticDataset, loop.eval_step, hungarian.solve_lap,
+         loop.finish_parse_pred) = dataset, eval_step, solve, finish
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    (card, card_outs), (cpu, cpu_outs) = runs["cuda"], runs["cpu"]
+    launches, shapes, _ = counts["cuda"]
+    want = {k: 2 * v for k, v in VAL_KERNELS.items()}
+    check(launches == want, f"rehearsal: launches {launches} for 2 "
+          f"snippets, want {want}")
+    check(len(shapes) == 2 and all(MAX_BOXES in s[1:] for s in shapes),
+          f"rehearsal: M1's problems {shapes}, want {MAX_BOXES} targets")
+    L = card_outs[0]["pred_logits"].shape[0]
+    mean_tab = load_mean_size_table(table, 9).astype(np.float32)
+    worst = [iteration_gaps(g, w, mean_tab, L, f"rehearsal snippet {i}")
+             for i, (g, w) in enumerate(zip(card_outs, cpu_outs))]
+    f1_keys = [k for k in cpu if k not in ("total_loss", "mean_latency_s")]
+    check(f1_keys and set(f1_keys) <= set(card), f"rehearsal: F1 keys "
+          f"{sorted(cpu)} on the CPU, {sorted(card)} on the card")
+    gaps = {k: abs(card[k] - cpu[k]) for k in f1_keys}
+    for k, g in gaps.items():
+        check(g <= 0.15, f"rehearsal: {k} {card[k]} on the card, {cpu[k]} "
+              "on the CPU")
+    phase("rehearsal", f"[{smi_line}] {os.path.relpath(ckpt, ROOT)} "
+          f"(parq_release.ckpt's layout, strict) through the eval twin on "
+          f"eval.yaml, f32, TF32 off: card {seconds['cuda']:.1f} s, CPU "
+          f"{seconds['cpu']:.1f} s; launches {launches}; M1 problems "
+          f"{shapes}; predictions through NMS {counts['cuda'][2]} (card), "
+          f"{counts['cpu'][2]} (CPU)")
+    phase("rehearsal", "card vs CPU, worst error per iteration (limit "
+          "1.5e-3·2.8^l): " + "; ".join(
+              f"snippet {i} " + ", ".join(f"{e:.2e} ({k})" for e, k in w)
+              for i, w in enumerate(worst)))
+    phase("rehearsal", f"F1 card vs CPU: 0.25_f1 {card.get('0.25_f1')} vs "
+          f"{cpu.get('0.25_f1')}, 0.5_f1 {card.get('0.5_f1')} vs "
+          f"{cpu.get('0.5_f1')}; largest gap over {len(gaps)} keys "
+          f"{max(gaps.values()):.4f} (limit 0.15); phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(REHEARSAL_DIR, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3109,7 +3341,7 @@ def main():
         phase_native(smi_line)
         engine, counts, requests = phase_serve(ServeConfig(model=cfg), 8)
         phase_parity(cfg)
-        train_counts, _ = phase_train(cfg)
+        train_counts, _ = phase_train(cfg, TRAIN_STEPS)
         phase_train_parity(cfg)
         phase_train_parity(dataclasses.replace(cfg, share_weights=False),
                            "unshared")
@@ -3138,6 +3370,8 @@ def main():
         rows += m1_rows
         phase_export(smi_line)
         phase_fit_sp(smi_line)
+        phase_bench(cfg, train_counts, TRAIN_STEPS, smi_line)
+        phase_rehearsal(smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

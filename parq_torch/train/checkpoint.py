@@ -38,6 +38,10 @@ logger = logging.getLogger(__name__)
 # the dead `decoder.norm` of released checkpoints: the reference never
 # applies it (parq_tpu/io/torch_convert.py:244 skips it as well)
 DEAD_PREFIX = "box3d_decoder.parq_module.decoder.norm."
+# torch BatchNorm's step counters: a frozen BatchNorm has no use for them
+# (torchvision's FrozenBatchNorm2d drops them on load, as the JAX converter
+# never reads them)
+COUNTER_SUFFIX = ".num_batches_tracked"
 _BODY = "backbone2d.resnet_fpn.body."
 
 
@@ -176,11 +180,13 @@ def load_pretrained(model: torch.nn.Module, path: str,
     strict=False, the warm start: keys present in both override, the rest
     keep their init. strict=True, the eval load: every key of the model
     must be in the file and the file may hold no other (a released
-    checkpoint's dead ``decoder.norm.*`` is dropped first); a torchvision
-    state_dict cannot satisfy it."""
+    checkpoint's dead ``decoder.norm.*`` and its BatchNorms'
+    ``num_batches_tracked`` are dropped first); a torchvision state_dict
+    cannot satisfy it."""
     sd = _read_state_dict(path)
     if any(k.startswith("backbone2d.") for k in sd):
-        sd = {k: v for k, v in sd.items() if not k.startswith(DEAD_PREFIX)}
+        sd = {k: v for k, v in sd.items() if not k.startswith(DEAD_PREFIX)
+              and not k.endswith(COUNTER_SUFFIX)}
     elif is_torchvision_resnet_sd(sd):
         if strict:
             raise ValueError(
