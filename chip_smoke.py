@@ -13,12 +13,17 @@ Phases, each printed on its own line; any failure exits non-zero:
                (scaled), each timed against its bound: the output in the
                memory's dtype, its f32 sums within 1e-4 of the plain sums
                and the output equal to them rounded, bit for bit; B2 (flash cross-attention) in bf16
-               (atol 2e-2: bf16 output rounding) and f32 (atol 1e-4), at
-               every KV split the wrapper can choose, plus B2 at a ragged
+               (atol 2e-2: bf16 output rounding) and f32 (atol 1e-4), B2
+               and its train form in bf16 at every KV split from 1 to 16
+               (the rule's pick printed), plus B2 at a ragged
                N; B2's train form (LSE to 1e-4, dropout 0.1) at Q=256, and
                folded (Q=2048 in 8 seed groups) against 8 separate calls,
                equal bit for bit; B3 (flash backward) at Q=2048, G=8, with
-               dropout 0.1 and 0, and at a ragged N; B2, B2-train and B3 at
+               dropout 0.1 and 0, and at a ragged N, and in bf16 at every
+               KV split of its dq pass (against the plain version with the
+               same split, two launches equal bit for bit, dKV the same at
+               every split; the rule's pick and the dq grid printed; its
+               two passes and the dq combine from 5 profiled launches); B2, B2-train and B3 at
                a Q that does not divide the 128-row tile (200) and an N
                below one KV tile (40); B4 (sampler d(memory)) at Q=2048 in
                bf16 and f32 on three distributions of the rows (the
@@ -33,7 +38,9 @@ Phases, each printed on its own line; any failure exits non-zero:
                those rows of the call over all 8, bit for bit; then every
                kernel at the shapes of configs/scaled_recurrence.yaml (B=1,
                T=6, Q=256, N=28,800) with the same tolerances: B1 (bf16
-               and f32), B2, B2-train, B3 and B4 (bf16);
+               and f32), B2, B2-train, B3 and B4 (bf16), B2 and B2-train
+               at every KV split, B3 at every dq split (its dq pass at
+               least 100 CTAs on a 132-SM card);
   4. matcher — kernel M1 (the matcher's batched LAP) against its plain
                version on the CPU, bit for bit, on the release problem (64
                pairs of 100 target rows x 256 queries, n_rows mixed over
@@ -80,8 +87,8 @@ Phases, each printed on its own line; any failure exits non-zero:
                and backward calls by CUDA events), launches on its path,
                bound ms, plain ms and the library call's ms (B4's record
                with g in the memory's dtype, as B1's output hands it on the
-               training paths); B4 on its three distributions; B3's two
-               passes from one profiled launch;
+               training paths); B4 on its three distributions; B2 at B=1 over the release N (the eval
+               twin's shape), its launches from the eval twin's run;
  11. sp      — two ranks on the one card over gloo (NCCL refuses two ranks
                on one GPU), MESH_MODEL 2, the memory tokens sharded: an f32
                step (TF32 off, L=2, B=1, dropout 0) against the one-process
@@ -501,8 +508,7 @@ def phase_kernels(cfg, scaled_cfg):
     its B=1 shapes. Returns the errors and B1's record rows."""
     from parq_torch.kernels import flash_cross_attention_kv_fused as flash
     from parq_torch.kernels.cross_attention import (
-        MAX_SPLITS, _flash_fwd, _splits_for, cross_attention_kv_fused_plain,
-        split_bounds)
+        cross_attention_kv_fused_plain)
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
     b1_rows = sampler_rows(cfg, scaled_cfg, gen)
@@ -523,20 +529,8 @@ def phase_kernels(cfg, scaled_cfg):
         phase("kernels", f"B2 flash {str(dtype)[6:]} q {tuple(q.shape)} "
               f"kv {tuple(kv.shape)}: max abs err {err:.3e} (atol {atol})")
         if dtype == torch.bfloat16:
-            want = cross_attention_kv_fused_plain(q, kv).float()
-            worst = {}
-            for splits in range(1, MAX_SPLITS + 1):
-                if len(split_bounds(n, splits)) != splits:
-                    continue       # a split would be left without a block
-                worst[splits] = (_flash_fwd(q, kv, splits).float()
-                                 - want).abs().max().item()
-                check(worst[splits] <= atol, f"B2 bf16 N={n} splits "
-                      f"{splits}: max abs err {worst[splits]} > {atol}")
-            phase("kernels", f"B2 flash bfloat16 N={n} at every KV split: "
-                  "max abs err " + ", ".join(f"{k}: {v:.3e}" for k, v in
-                                             worst.items())
-                  + f" (atol {atol}; the wrapper's rule picks "
-                  f"{_splits_for(q, n, q.shape[2], None)})")
+            check_kv_splits(q, kv, cfg.dropout_rate, atol, gen,
+                            f"B=8 N={n}")
     errs.update(train_kernels(cfg, gen, N))
     errs.update(split_kernels(cfg, gen, N))
     torch.cuda.synchronize()
@@ -548,6 +542,95 @@ def phase_kernels(cfg, scaled_cfg):
             "pixel_align_bwd_mem": errs["B4"],
             **{k: v for k, v in errs.items() if isinstance(k, str)
                and k.startswith("flash_cross_attention_")}}, b1_rows
+
+
+def valid_splits(N):
+    """Every KV split the kernels take at N: 1..MAX_SPLITS, each split
+    owning at least one 64-token block."""
+    from parq_torch.kernels.cross_attention import MAX_SPLITS, split_bounds
+    return [s for s in range(1, MAX_SPLITS + 1)
+            if len(split_bounds(N, s)) == s]
+
+
+def check_kv_splits(q, kv, rate, atol, gen, label):
+    """B2 (eval form) and B2-train (dropout `rate`) at every KV split
+    against their plain versions: o to `atol`, lse to 1e-4. Prints the
+    split the wrapper's rule picks."""
+    from parq_torch.kernels.cross_attention import (
+        _flash_fwd, _flash_fwd_lse, _splits_for,
+        cross_attention_kv_fused_plain, cross_attention_kv_fused_train_plain)
+    N = kv.shape[1]
+    seeds = seed_vector(1, gen)
+    want = cross_attention_kv_fused_plain(q, kv).float()
+    o_ref, lse_ref = cross_attention_kv_fused_train_plain(q, kv, seeds, rate)
+    worst, worst_t = {}, {}
+    for splits in valid_splits(N):
+        worst[splits] = (_flash_fwd(q, kv, splits).float()
+                         - want).abs().max().item()
+        o, lse = _flash_fwd_lse(q, kv, seeds, rate, splits)
+        worst_t[splits] = (o.float() - o_ref.float()).abs().max().item()
+        err_l = (lse - lse_ref).abs().max().item()
+        check(max(worst[splits], worst_t[splits]) <= atol
+              and err_l <= 1e-4, f"B2 {label} splits {splits}: eval "
+              f"{worst[splits]}, train {worst_t[splits]} > {atol} or lse "
+              f"{err_l} > 1e-4")
+    fmt = lambda d: ", ".join(f"{k}: {v:.3e}" for k, v in d.items())
+    phase("kernels", f"B2 bfloat16 {label} q {tuple(q.shape)} at every KV "
+          f"split, max abs err: eval {fmt(worst)}; train (rate {rate}, lse "
+          f"to 1e-4) {fmt(worst_t)} (atol {atol}; the rule picks "
+          f"{_splits_for(q, N, q.shape[2], None)})")
+
+
+def check_dq_splits(q, kv, seeds, rate, limit, gen, label):
+    """B3 at every KV split of its dq pass against the plain version with
+    the same split (`cross_attention_kv_fused_bwd_split_plain`): dq and
+    dKV to `limit` of their largest elements; two launches equal bit for
+    bit; dKV the same at every split. Prints the split the rule picks and
+    its grid, and profiles 5 launches at that split (the passes and the
+    combine apart); returns (the rule's split, its dq pass's CTAs)."""
+    from parq_torch.kernels import flash_fwd_lse
+    from parq_torch.kernels.cross_attention import (
+        _flash_bwd, _splits_for, cross_attention_kv_fused_bwd_split_plain,
+        split_bounds)
+    N = kv.shape[1]
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    o, lse = flash_fwd_lse(q, kv, seeds, rate)
+    delta = (do.float() * o.float()).sum(-1)
+    errs, dkv1 = {}, None
+    for splits in valid_splits(N):
+        dq, dkv = _flash_bwd(q, kv, do, lse, delta, seeds, rate, splits)
+        dq2, dkv2 = _flash_bwd(q, kv, do, lse, delta, seeds, rate, splits)
+        check(torch.equal(dq, dq2) and torch.equal(dkv, dkv2),
+              f"B3 {label} dq splits {splits}: two launches differ")
+        check(dkv1 is None or torch.equal(dkv, dkv1),
+              f"B3 {label}: dKV changes with the dq split ({splits})")
+        dkv1 = dkv
+        want = cross_attention_kv_fused_bwd_split_plain(
+            q, kv, do, lse, delta, seeds, rate, split_bounds(N, splits))
+        for name, a, b in (("dq", dq, want[0]), ("dkv", dkv, want[1])):
+            err, rel = _rel_err(a, b)
+            check(rel <= limit, f"B3 {label} dq splits {splits} {name}: "
+                  f"max abs err {err} is {rel} of its max > {limit}")
+        errs[splits] = _rel_err(dq, want[0])[0]
+        del dq, dq2, dkv2, want
+    B, H, Q, _ = q.shape
+    rule = _splits_for(q, N, Q, None)
+    grid = (-(-Q // 128) * rule, H, B)     # the dq pass's launch grid
+    ctas = grid[0] * H * B
+    phase("kernels", f"B3 bfloat16 {label} q {tuple(q.shape)} N={N} rate "
+          f"{rate} at every dq split, two launches equal bit for bit, dKV "
+          "the same at every split; dq max abs err " + ", ".join(
+              f"{k}: {v:.3e}" for k, v in errs.items())
+          + f" (limit {limit} of its max); the rule picks {rule}: dq pass "
+          f"grid {grid}, {ctas} CTAs")
+    # several launches in one window: the tracer can miss a window's first
+    # kernels, and a lone short launch sometimes shows none
+    device_profile(lambda: [_flash_bwd(q, kv, do, lse, delta, seeds, rate,
+                                       rule) for _ in range(5)],
+                   f"5 B3 launches, {label} (the dkv pass, the dq pass in "
+                   f"{rule} splits and, where it splits, the dq combine)",
+                   top=3, label_phase="kernels")
+    return rule, ctas
 
 
 def check_building_blocks(gen):
@@ -649,6 +732,8 @@ def train_kernels(cfg, gen, N):
             worst = check_backward(qf, kvn, seeds, r, atol, gen)
             if dtype == torch.bfloat16 and n == N and r == rate:
                 errs["B3"] = worst
+        if dtype == torch.bfloat16:    # only the bf16 kernel splits dq
+            check_dq_splits(qf, kv, seeds, rate, atol, gen, "release fold")
 
         # a Q that does not divide the 128-row tile, an N below one KV tile
         for n in (1000, 40):
@@ -775,7 +860,8 @@ def split_kernels(cfg, gen, N):
     all 8, bit for bit. Returns the bf16 errors of the JSON rows."""
     from parq_torch.kernels import flash_bwd, flash_fwd_lse, flash_fwd_lse_kv
     from parq_torch.kernels.cross_attention import (
-        _flash_fwd_lse, _splits_for, cross_attention_kv_fused_bwd_plain,
+        _flash_bwd, _flash_fwd_lse, _splits_for,
+        cross_attention_kv_fused_bwd_plain,
         cross_attention_kv_fused_train_plain, heads_view)
     Hh, D, Q0, L = cfg.dec_heads, cfg.dec_dim // cfg.dec_heads, \
         cfg.num_queries, cfg.dec_layers
@@ -825,13 +911,15 @@ def split_kernels(cfg, gen, N):
         phase("kernels", f"v2 fused {str(dtype)[6:]}: B2-train o max abs err "
               f"{err2:.3e} (atol {atol}); B3 {rel2:.2e} of its max (limit "
               f"{atol})")
-        # b_offset: rows 4-7 of the global call, bit for bit
+        # b_offset: rows 4-7 of the global call, bit for bit, at the
+        # global call's KV splits (both rules count the call's CTAs)
         sp = _splits_for(q, n_sp, Q0, None)
         o_all, l_all = _flash_fwd_lse(q, kv, s1, rate, sp)
         o_4, l_4 = _flash_fwd_lse(q[4:], kv[4:], s1, rate, sp, b_offset=4)
-        dq_all, dkv_all = flash_bwd(q, kv, o_all, l_all, l_all, s1, rate)
-        dq_4, dkv_4 = flash_bwd(q[4:], kv[4:], o_all[4:], l_all[4:],
-                                l_all[4:], s1, rate, b_offset=4)
+        dq_all, dkv_all = _flash_bwd(q, kv, o_all, l_all, l_all, s1, rate,
+                                     sp)
+        dq_4, dkv_4 = _flash_bwd(q[4:], kv[4:], o_all[4:], l_all[4:],
+                                 l_all[4:], s1, rate, sp, b_offset=4)
         check(torch.equal(o_all[4:], o_4) and torch.equal(l_all[4:], l_4)
               and torch.equal(dq_all[4:], dq_4)
               and torch.equal(dkv_all[4:], dkv_4),
@@ -976,9 +1064,13 @@ def phase_parity(cfg):
 def device_profile(run, label, top=8, label_phase="times"):
     """One call of `run` under torch.profiler (`tools/profiling.py`):
     device time by kernel name, and the device's busy share of the
-    profiled call's wall time."""
+    profiled call's wall time. A window in which the tracer saw no kernel
+    is profiled again, up to three times in all."""
     from parq_torch.tools.profiling import device_profile as profile_call
-    prof = profile_call(run)
+    for _ in range(3):
+        prof = profile_call(run)
+        if prof is not None:
+            break
     if prof is None:
         phase(label_phase, f"profiler saw no device time in the {label}: "
               "breakdown not measured")
@@ -1537,9 +1629,42 @@ def phase_times(cfg, engine, counts, requests, train_counts, errs, b1_row):
           f"{device_ms(lambda: _flash_fwd(q, kv, 1), 10):.4f} ms (eval), "
           f"{device_ms(lambda: _flash_fwd_lse(q, kv, s1, rate, 1), 10):.4f}"
           " ms (train)")
-    device_profile(lambda: flash_bwd(qf, kv, do, lse, delta, sL, rate),
-                   "B3 launch (its two passes)", top=2)
     return rows
+
+
+def eval_b1_row(cfg):
+    """B2 at B=1 over the release N (the eval twin's shape, and /detect at
+    batch 1) against its plain version (atol 2e-2) and timed: the record
+    row without its launches, which the eval twin's run gives."""
+    import torch.nn.functional as F
+    from parq_torch.kernels import flash_cross_attention_kv_fused as flash
+    from parq_torch.kernels.cross_attention import (
+        _splits_for, cross_attention_kv_fused_plain, split_kv)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    Hh, D = cfg.dec_heads, cfg.dec_dim // cfg.dec_heads
+    N = cfg.num_views * cfg.feat_size[0] * cfg.feat_size[1]
+    q, kv = attention_inputs(1, Hh, cfg.num_queries, N, D, torch.bfloat16,
+                             gen)
+    k, v = (t.contiguous() for t in split_kv(kv, Hh))
+    err = (flash(q, kv).float() - cross_attention_kv_fused_plain(q, kv)
+           .float()).abs().max().item()
+    check(err <= 2e-2, f"B2 eval B=1: max abs err {err} > 2e-2")
+    bound, by = attention_bound(q, kv)
+    row = dict(name="flash_cross_attention_fwd_eval_b1", route="cuda",
+               source="parq_torch/csrc/flash_fwd_sm90.cu",
+               replaces="parq_tpu/kernels/cross_attention_pallas.py:457",
+               max_abs_err=err, ms=device_ms(lambda: flash(q, kv), 20),
+               plain_ms=device_ms(
+                   lambda: cross_attention_kv_fused_plain(q, kv), 5),
+               bound_ms=bound, bound_by=by,
+               library_ms=device_ms(
+                   lambda: F.scaled_dot_product_attention(q, k, v), 20))
+    phase("times", f"{row['name']}: q {tuple(q.shape)} N={N}, KV splits "
+          f"{_splits_for(q, N, q.shape[2], None)}: {row['ms']:.4f} ms/launch"
+          f", bound {bound:.4f} ms ({by}), plain {row['plain_ms']:.4f} ms, "
+          f"library {row['library_ms']:.4f} ms; max abs err {err:.3e} (atol "
+          "2e-2)")
+    return row
 
 
 def split_rows(cfg, errs, sp_counts):
@@ -1965,6 +2090,11 @@ def scaled_kernels(mcfg):
           f"{rate}) {err_t:.3e} (atol 2e-2), lse {err_l:.3e} (atol 1e-4)")
     errs["flash_cross_attention_bwd"] = check_backward(q, kv, seeds, rate,
                                                        2e-2, gen)
+    check_kv_splits(q, kv, rate, 2e-2, gen, "scaled")
+    _, ctas = check_dq_splits(q, kv, seeds, rate, 2e-2, gen, "scaled")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check(sms < 132 or ctas >= 100, f"scaled B3: the dq pass launches "
+          f"{ctas} CTAs on {sms} SMs (want at least 100)")
     got = sample_views_bwd_mem(uvs, g, mem.shape, mem.dtype)
     check(torch.equal(got, sample_views_bwd_mem(uvs, g, mem.shape,
                                                 mem.dtype)),
@@ -2050,8 +2180,6 @@ def scaled_rows(mcfg, errs, counts, b1_row):
     phase("times", f"scaled: B2 splits its KV range in "
           f"{_splits_for(q, kv.shape[1], q.shape[2], None)} at q "
           f"{tuple(q.shape)}, N={kv.shape[1]}")
-    device_profile(lambda: flash_bwd(q, kv, do, lse, delta, s1, rate),
-                   "scaled B3 launch (its two passes)", top=2)
     out = [dict(b1_row, launches=counts["pixel_align_sample"])]
     for r in rows:
         kernel = r.pop("kernel")
@@ -3348,6 +3476,7 @@ def main():
         rows = phase_times(cfg, engine, counts, requests, train_counts,
                            errs, b1_rows["pixel_align_sample"])
         m1_rows[0]["launches"] = train_counts["lap_solve"]
+        b2_eval_row = eval_b1_row(cfg)
         del engine
         torch.cuda.empty_cache()
         sp_counts = phase_sp(cfg)
@@ -3359,6 +3488,8 @@ def main():
         _, eval_counts = phase_eval(ckpt, smi_line)
         rows.append(dict(b1_rows["pixel_align_sample_eval"],
                          launches=eval_counts["pixel_align_sample"]))
+        rows.append(dict(b2_eval_row,
+                         launches=eval_counts["flash_cross_attention_fwd"]))
         phase_vis(smi_line)
         phase_serve_ckpt(ckpt)
         shutil.rmtree(CLI_DIR, ignore_errors=True)

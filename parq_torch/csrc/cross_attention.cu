@@ -1313,31 +1313,36 @@ cudaError_t fwd(const void* q, const KV& k, const KV& v, void* o, float* lse,
 
 // Backward: f32 -> bwd (SIMT); bf16 at D = 256 -> flash_bwd_sm90.cu (wgmma);
 // bf16 at D = 64, 128 -> tcb (mma.sync).
+// Only the wgmma kernel splits its dq pass (dq_splits > 1).
 template <int D>
 cudaError_t dispatch_bwd_d(const void* q, const KV& k, const KV& v,
                            const void* dout, const float* lse,
                            const float* delta, Dropout drop, void* dq,
-                           const KV& dk, const KV& dv, int B, int H, int Q,
-                           int N, int is_bf16, cudaStream_t s) {
+                           const KV& dk, const KV& dv, float* dq_part,
+                           int dq_splits, int B, int H, int Q, int N,
+                           int is_bf16, cudaStream_t s) {
+  if (is_bf16 && D == parq::sm90::kD)
+    return parq::sm90::flash_bwd(q, k, v, dout, lse, delta, drop, dq, dk, dv,
+                                 dq_part, dq_splits, B, H, Q, N, s);
+  if (dq_splits != 1) return cudaErrorInvalidValue;
   if (!is_bf16)
     return bwd::launch<D>(q, k, v, dout, lse, delta, drop, dq, dk, dv, B, H,
                           Q, N, s);
-  if constexpr (D == parq::sm90::kD)
-    return parq::sm90::flash_bwd(q, k, v, dout, lse, delta, drop, dq, dk, dv,
-                                 B, H, Q, N, s);
-  else
+  if constexpr (D != parq::sm90::kD)
     return tcb::launch<D>(q, k, v, dout, lse, delta, drop, dq, dk, dv, B, H,
                           Q, N, s);
+  return cudaErrorInvalidValue;  // not reached: bf16 at D = 256 is above
 }
 
 cudaError_t bwd_all(const void* q, const KV& k, const KV& v,
                     const void* dout, const float* lse, const float* delta,
-                    Dropout drop, void* dq, const KV& dk, const KV& dv, int B,
-                    int H, int Q, int N, int D, int is_bf16, cudaStream_t s) {
+                    Dropout drop, void* dq, const KV& dk, const KV& dv,
+                    float* dq_part, int dq_splits, int B, int H, int Q,
+                    int N, int D, int is_bf16, cudaStream_t s) {
   switch (D) {
-    case 64: return dispatch_bwd_d<64>(q, k, v, dout, lse, delta, drop, dq, dk, dv, B, H, Q, N, is_bf16, s);
-    case 128: return dispatch_bwd_d<128>(q, k, v, dout, lse, delta, drop, dq, dk, dv, B, H, Q, N, is_bf16, s);
-    case 256: return dispatch_bwd_d<256>(q, k, v, dout, lse, delta, drop, dq, dk, dv, B, H, Q, N, is_bf16, s);
+    case 64: return dispatch_bwd_d<64>(q, k, v, dout, lse, delta, drop, dq, dk, dv, dq_part, dq_splits, B, H, Q, N, is_bf16, s);
+    case 128: return dispatch_bwd_d<128>(q, k, v, dout, lse, delta, drop, dq, dk, dv, dq_part, dq_splits, B, H, Q, N, is_bf16, s);
+    case 256: return dispatch_bwd_d<256>(q, k, v, dout, lse, delta, drop, dq, dk, dv, dq_part, dq_splits, B, H, Q, N, is_bf16, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1369,7 +1374,7 @@ Dropout make_dropout(const void* seeds, int group_rows, unsigned thresh,
 // stride a multiple of 8 elements. For bf16 at D = 256 each view must be
 // one a tensor map can take (parq::sm90::kv_map): heads side by side in a
 // row, or one plane per head with the samples' planes back to back.
-// splits (1..4) cuts the KV range over that many CTAs per q tile: above 1
+// splits (1..16) cuts the KV range over that many CTAs per q tile: above 1
 // only for bf16 at D = 256, with scratch of splits * B*H*Q * (D + 1) floats
 // (the f32 partials, then their logsumexp), and no split may be left
 // without a 64-token block. Returns the launch's cudaError_t
@@ -1407,18 +1412,23 @@ extern "C" int parq_flash_fwd_kv_lse(const void* q, KV k, KV v, void* o,
 // for parq_flash_fwd_kv, all bf16 (is_bf16=1) or all f32; lse and delta
 // (B, H, Q) f32; the dropout arguments as for parq_flash_fwd_kv_lse. dK and
 // dV are written for every valid row of every head, summed over all Q rows.
+// dq_splits (1..16) cuts the dq pass's KV range over that many CTAs per q
+// tile as `splits` does the forward's: above 1 only for bf16 at D = 256,
+// with scratch of dq_splits * B*H*Q * D floats (the f32 partials of dq).
 extern "C" int parq_flash_bwd_kv(const void* q, KV k, KV v, const void* dout,
                                  const void* lse, const void* delta,
                                  const void* seeds, void* dq, KV dk, KV dv,
-                                 int B, int H, int Q, int N, int D,
-                                 int group_rows, unsigned thresh,
-                                 float keep_scale, int b_offset, int v2,
-                                 int is_bf16, void* stream) {
+                                 void* scratch, int dq_splits, int B, int H,
+                                 int Q, int N, int D, int group_rows,
+                                 unsigned thresh, float keep_scale,
+                                 int b_offset, int v2, int is_bf16,
+                                 void* stream) {
   return static_cast<int>(bwd_all(
       q, k, v, dout, static_cast<const float*>(lse),
       static_cast<const float*>(delta),
       make_dropout(seeds, group_rows, thresh, keep_scale, b_offset, v2), dq,
-      dk, dv, B, H, Q, N, D, is_bf16, static_cast<cudaStream_t>(stream)));
+      dk, dv, static_cast<float*>(scratch), dq_splits, B, H, Q, N, D,
+      is_bf16, static_cast<cudaStream_t>(stream)));
 }
 
 // The fused (B, N, H*2D) buffer kv (and dkv) contiguous: the three entries
@@ -1447,14 +1457,16 @@ extern "C" int parq_flash_fwd_kv_fused_lse(
 
 extern "C" int parq_flash_bwd_kv_fused(
     const void* q, const void* kv, const void* dout, const void* lse,
-    const void* delta, const void* seeds, void* dq, void* dkv, int B, int H,
-    int Q, int N, int D, int group_rows, unsigned thresh, float keep_scale,
-    int b_offset, int v2, int is_bf16, void* stream) {
+    const void* delta, const void* seeds, void* dq, void* dkv, void* scratch,
+    int dq_splits, int B, int H, int Q, int N, int D, int group_rows,
+    unsigned thresh, float keep_scale, int b_offset, int v2, int is_bf16,
+    void* stream) {
   const int eb = is_bf16 ? 2 : 4;
   return parq_flash_bwd_kv(
       q, fused_k(kv, H, N, D), fused_v(kv, H, N, D, eb), dout, lse, delta,
-      seeds, dq, fused_k(dkv, H, N, D), fused_v(dkv, H, N, D, eb), B, H, Q,
-      N, D, group_rows, thresh, keep_scale, b_offset, v2, is_bf16, stream);
+      seeds, dq, fused_k(dkv, H, N, D), fused_v(dkv, H, N, D, eb), scratch,
+      dq_splits, B, H, Q, N, D, group_rows, thresh, keep_scale, b_offset, v2,
+      is_bf16, stream);
 }
 
 // hopper.cuh's building blocks on one tile (see parq::sm90::wgmma_selftest):

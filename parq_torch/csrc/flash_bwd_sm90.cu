@@ -31,11 +31,22 @@
 //     dK += dS^T Q. p crosses once through shared memory in f32, thread for
 //     thread in fragment order, with the keep bit in its sign (p >= 0), so
 //     S^T and the hash are computed once (4 products, not 6).
-//   - dq pass: one CTA per (b, h, 128 q rows), two consumer warpgroups of
-//     64 rows; Q and dO stay in shared memory (128 KB), K and V tiles of 64
-//     tokens alternate (V first: its slot frees earlier) through a ring of
-//     three 32 KB slots, so the next block loads during this one; dS stays in
-//     registers as the A operand of dQ += dS K (m64n256k16).
+//   - dq pass: one CTA per (b, h, 128 q rows, KV range), two consumer
+//     warpgroups of 64 rows; Q and dO stay in shared memory (128 KB), K and
+//     V tiles of 64 tokens alternate (V first: its slot frees earlier)
+//     through a ring of three 32 KB slots, so the next block loads during
+//     this one; dS stays in registers as the A operand of dQ += dS K
+//     (m64n256k16).
+//   - The dq pass at B=1: at Q=256 there are only B H Q/128 = 8 such CTAs
+//     for 132 SMs, each walking all N/64 blocks (450 at N=28800), so one
+//     SM's work sets the time. The caller cuts the KV range into
+//     `dq_splits` runs of whole 64-token blocks (the forward's
+//     split_bounds), one CTA each; a CTA of a split call writes its dQ sum
+//     in f32 into dq_part (splits, B, H, Q, D) and flash_bwd_dq_combine
+//     adds the partials in split order, scales by 1/sqrt(D) and rounds once.
+//     No atomics: two launches on the same inputs are equal bit for bit.
+//     At the release fold (512 dq CTAs) the rule gives one split and the
+//     pass writes dq itself, as before.
 //   - The producer warpgroup hands its registers to the consumers
 //     (setmaxnreg 24 / 240).
 // Rows past Q read as zeros (3-D tensor maps), get lse = 1e30 (p = 0) and
@@ -340,8 +351,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                          TmaCoord at_k, TmaCoord at_v,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, Dropout drop,
-                         bf16* __restrict__ dq_out, int H, int Q, int N,
-                         float sm_scale) {
+                         bf16* __restrict__ dq_out,
+                         float* __restrict__ dq_part, int H, int Q, int N,
+                         int splits, int blocks_per_split, float sm_scale) {
   using namespace dq_pass;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -353,9 +365,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + kSlots;
 
-  const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
+  const int tile = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int q0 = tile * kBM, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
   const int nblocks = (N + kBN - 1) / kBN;
+  const int blk0 = split * blocks_per_split;
+  const int nit = min(nblocks, blk0 + blocks_per_split) - blk0;
   const int wg = threadIdx.x / kWarpgroup;
 
   if (threadIdx.x == 0) {
@@ -378,14 +393,14 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       uint32_t phase = 1;
       // V before K: V's slot is free again mid-block (after dP), K's only
       // after dQ += dS K, so both tiles of the next block load during this
-      for (int j = 0; j < 2 * nblocks; ++j) {  // even: V, odd: K
+      for (int j = 0; j < 2 * nit; ++j) {  // even: V, odd: K
         mbar_wait(empty + slot, phase);
         mbar_arrive_expect_tx(full + slot, kTile64);
         const bool is_k = j & 1;
         const TmaCoord& at = is_k ? at_k : at_v;
         tma_load_tile<kBoxes>(sKV + slot * kTile64, kBox64,
                               is_k ? &map_k : &map_v, full + slot,
-                              h * at.hc, (j >> 1) * kBN,
+                              h * at.hc, (blk0 + (j >> 1)) * kBN,
                               b * at.zb + h * at.zh);
         if (++slot == kSlots) {
           slot = 0;
@@ -423,7 +438,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     uint32_t phase = 0;
 
     mbar_wait(q_bar, 0);
-    for (int blk = 0; blk < nblocks; ++blk) {
+    for (int blk = 0; blk < nit; ++blk) {
       const int v_slot = slot;
       float s[32], dp[32];
 #pragma unroll
@@ -448,7 +463,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       // the keep bits depend on (row, col) alone: draw them while the
       // tensor cores work (bit 4 j + e for s[4 j + e])
-      const int m0 = blk * kBN;
+      const int m0 = (blk0 + blk) * kBN;
       uint32_t keep = 0xffffffffu;
       if (drop.thresh) {
         auto draw = [&](auto v2) {
@@ -487,21 +502,61 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       if (lane == 0) mbar_arrive(empty + k_slot);
     }
 
-    bf16* dqbh = dq_out + (long long)bh * Q * kD;
+    if (splits == 1) {
+      bf16* dqbh = dq_out + (long long)bh * Q * kD;
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      const int col = n * 8 + tig * 2;
+      for (int n = 0; n < kD / 8; ++n) {
+        const int col = n * 8 + tig * 2;
 #pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int row = row0 + hi * 8;
-        if (row < Q)
-          *reinterpret_cast<uint32_t*>(dqbh + (long long)row * kD + col) =
-              pack_bf16x2(acc[4 * n + 2 * hi] * sm_scale,
-                          acc[4 * n + 2 * hi + 1] * sm_scale);
+        for (int hi = 0; hi < 2; ++hi) {
+          const int row = row0 + hi * 8;
+          if (row < Q)
+            *reinterpret_cast<uint32_t*>(dqbh + (long long)row * kD + col) =
+                pack_bf16x2(acc[4 * n + 2 * hi] * sm_scale,
+                            acc[4 * n + 2 * hi + 1] * sm_scale);
+        }
+      }
+    } else {  // this KV range's dQ sum, f32, unscaled
+      float* part = dq_part + ((long long)split * gridDim.z * H + bh) * Q * kD;
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) {
+        const int col = n * 8 + tig * 2;
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int row = row0 + hi * 8;
+          if (row < Q)
+            *reinterpret_cast<float2*>(part + (long long)row * kD + col) =
+                make_float2(acc[4 * n + 2 * hi], acc[4 * n + 2 * hi + 1]);
+        }
       }
     }
     role_exit();
   }
+}
+
+// dq of a split dq pass: the splits' f32 partials of each row added in
+// split order, times sm_scale, rounded to bf16 once. One CTA of 256
+// threads per 4 rows; a thread owns 4 columns.
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_combine_kernel(const float* __restrict__ dq_part,
+                            bf16* __restrict__ dq, long long rows,
+                            int splits, float sm_scale) {
+  const long long row = (long long)blockIdx.x * 4 + threadIdx.x / 64;
+  if (row >= rows) return;
+  const int col = (threadIdx.x % 64) * 4;
+  float4 sum = *reinterpret_cast<const float4*>(dq_part + row * kD + col);
+  for (int i = 1; i < splits; ++i) {
+    const float4 v = *reinterpret_cast<const float4*>(
+        dq_part + (i * rows + row) * kD + col);
+    sum.x += v.x;
+    sum.y += v.y;
+    sum.z += v.z;
+    sum.w += v.w;
+  }
+  uint2 out;
+  out.x = pack_bf16x2(sum.x * sm_scale, sum.y * sm_scale);
+  out.y = pack_bf16x2(sum.z * sm_scale, sum.w * sm_scale);
+  *reinterpret_cast<uint2*>(dq + row * kD + col) = out;
 }
 
 }  // namespace
@@ -509,7 +564,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 cudaError_t flash_bwd(const void* q, const KV& k, const KV& v,
                       const void* dout, const float* lse, const float* delta,
                       Dropout drop, void* dq, const KV& dk, const KV& dv,
-                      int B, int H, int Q, int N, cudaStream_t stream) {
+                      float* dq_part, int dq_splits, int B, int H, int Q,
+                      int N, cudaStream_t stream) {
+  const int nblocks = (N + dq_pass::kBN - 1) / dq_pass::kBN;
+  if (dq_splits < 1 || dq_splits > kMaxSplits) return cudaErrorInvalidValue;
+  const int bps = (nblocks + dq_splits - 1) / dq_splits;
+  if ((dq_splits - 1) * bps >= nblocks) return cudaErrorInvalidValue;
+  if (dq_splits > 1 && dq_part == nullptr) return cudaErrorInvalidValue;
   const float sm_scale = 1.f / sqrtf(static_cast<float>(kD));
   const uint64_t bh = (uint64_t)B * H, q_stride = (uint64_t)Q * kD;
   CUtensorMap q64, do64, q128, do128, map_k, map_v;
@@ -542,11 +603,17 @@ cudaError_t flash_bwd(const void* q, const KV& k, const KV& v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dq_sm90_kernel
-      <<<dim3((Q + dq_pass::kBM - 1) / dq_pass::kBM, H, B), kThreads,
-         dq_pass::kSmemBytes, stream>>>(q128, do128, map_k, map_v, at_k,
-                                        at_v, lse, delta, drop,
-                                        static_cast<bf16*>(dq), H, Q, N,
-                                        sm_scale);
+      <<<dim3((Q + dq_pass::kBM - 1) / dq_pass::kBM * dq_splits, H, B),
+         kThreads, dq_pass::kSmemBytes, stream>>>(
+          q128, do128, map_k, map_v, at_k, at_v, lse, delta, drop,
+          static_cast<bf16*>(dq), dq_part, H, Q, N, dq_splits, bps,
+          sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || dq_splits == 1) return err;
+  const long long rows = (long long)B * H * Q;
+  flash_bwd_dq_combine_kernel<<<(unsigned)((rows + 3) / 4), 256, 0,
+                                stream>>>(dq_part, static_cast<bf16*>(dq),
+                                          rows, dq_splits, sm_scale);
   return cudaGetLastError();
 }
 

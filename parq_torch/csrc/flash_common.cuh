@@ -95,7 +95,7 @@ __device__ __forceinline__ bool keep_bit(const Dropout& d, uint32_t h0,
 namespace sm90 {
 
 constexpr int kD = 256;       // head dim the kernels are written for
-constexpr int kMaxSplits = 4; // most KV splits the forward takes
+constexpr int kMaxSplits = 16;  // most KV splits B2 and B3's dq pass take
 constexpr int kBoxes = kD / 64;  // TMA boxes (64 bf16 columns) per tile row
 constexpr int kConsumers = 2;    // consumer warpgroups of a CTA
 constexpr int kThreads = (kConsumers + 1) * 128;  // + the producer's
@@ -152,11 +152,16 @@ cudaError_t flash_fwd(const void* q, const KV& k, const KV& v, void* o,
                       cudaStream_t stream);
 
 // B3: the dkv pass, then the dq pass. dK and dV are written through their
-// own views (for the fused layout both point into one dKV buffer).
+// own views (for the fused layout both point into one dKV buffer). With
+// dq_splits > 1 the dq pass cuts each q tile's KV range into that many runs
+// of whole 64-token blocks, as the forward does, each CTA writing an f32
+// partial into dq_part (dq_splits, B, H, Q, D), and a combine kernel adds
+// them in split order into dq. Every split must own at least one block.
 cudaError_t flash_bwd(const void* q, const KV& k, const KV& v,
                       const void* dout, const float* lse, const float* delta,
                       Dropout drop, void* dq, const KV& dk, const KV& dv,
-                      int B, int H, int Q, int N, cudaStream_t stream);
+                      float* dq_part, int dq_splits, int B, int H, int Q,
+                      int N, cudaStream_t stream);
 
 // The building blocks on one tile: c1 (64, 64) f32 = a (64, 64) bf16 times
 // b (64, 64) bf16 transposed (both K-major, from shared memory), and c2

@@ -12,7 +12,7 @@
 B2 and B3 in bf16 at the release head dim (256) are the Hopper kernels of
 ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (wgmma on TMA-fed
 shared-memory rings, the forward's KV range split over CTAs by
-`cross_attention.kv_splits`); f32, and bf16 at head dims 64 and 128, run
+`cross_attention.kv_splits` and B3's dq pass's by `dq_splits`); f32, and bf16 at head dims 64 and 128, run
 the SIMT and mma.sync kernels of ``csrc/cross_attention.cu``. B4
 (``csrc/pixel_align_bwd.cu``) is a per-pixel gather: one CTA per 8x8 tile
 of a map lists the query rows that touch the tile and each pixel sums its

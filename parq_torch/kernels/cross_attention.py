@@ -41,7 +41,10 @@ ones (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``: wgmma on
 TMA-fed shared-memory rings), and the forward may split the KV range over
 several CTAs per q tile (`kv_splits`) and merge the partials in a combine
 kernel; `merge_partials` and `cross_attention_kv_fused_split_plain` are the
-plain version of that. A split forward and its combine count as one launch.
+plain version of that. B3's dq pass splits the same way (`dq_splits`), its
+combine adding f32 partials of dq in split order
+(`cross_attention_kv_fused_bwd_split_plain`). A split call and its combine
+count as one launch.
 
 Dropout is the JAX package's counter hash of (seed, b·H + h, group-local
 row, global kv column) (`_keep_mask`, :58-117), bit for bit: v1, or v2
@@ -63,7 +66,7 @@ from . import _build
 
 HEAD_DIMS = (64, 128, 256)  # head dims the CUDA kernel is built for
 SPLIT_HEAD_DIM = 256        # the head dim whose bf16 forward can split KV
-MAX_SPLITS = 4              # most KV splits the forward takes
+MAX_SPLITS = 16             # most KV splits B2 and B3's dq pass take
 _Q_TILE, _KV_BLOCK = 128, 64   # the Hopper forward's CTA tile
 
 
@@ -264,11 +267,14 @@ def cross_attention_kv_fused_split_plain(q: torch.Tensor, kv: torch.Tensor,
 
 def attention_bwd_plain(q, k, v, do, lse, delta, seeds, rate: float,
                         dk: torch.Tensor, dv: torch.Tensor,
-                        b_offset: int = 0, v2: bool = False):
+                        b_offset: int = 0, v2: bool = False, bounds=None):
     """Plain version of B3 on (B, H, N, D) k and v: returns dq in q's
     dtype and writes dK and dV, summed over every q row, into the (B, H,
     N, D) views `dk` and `dv`. ds and w are rounded to the working dtype
-    before the last three products, as the JAX kernel does."""
+    before the last three products, as the JAX kernel does. With `bounds`
+    (token ranges, `split_bounds`) dq is the split dq pass's arithmetic:
+    one f32 partial of ds·K per range, added in split order, then
+    scaled."""
     B, H, Q, D = q.shape
     N = k.shape[2]
     scale = D ** -0.5
@@ -286,7 +292,14 @@ def attention_bwd_plain(q, k, v, do, lse, delta, seeds, rate: float,
             dw = dob @ vb.transpose(-1, -2)
             ds = (w * dw - p * delta[b][..., None]).to(q.dtype).float()
             w = w.to(do.dtype).float()
-            dq[b] = ((ds @ kb) * scale).to(q.dtype)
+            if bounds is None:
+                dq[b] = ((ds @ kb) * scale).to(q.dtype)
+            else:
+                parts = [ds[..., n0:n1] @ kb[:, n0:n1] for n0, n1 in bounds]
+                acc = parts[0]
+                for part in parts[1:]:
+                    acc = acc + part
+                dq[b] = (acc * scale).to(q.dtype)
             dk[b] = ((ds.transpose(-1, -2) @ qb) * scale).to(dk.dtype)
             dv[b] = (w.transpose(-1, -2) @ dob).to(dv.dtype)
     return dq
@@ -301,6 +314,21 @@ def cross_attention_kv_fused_bwd_plain(q, kv, do, lse, delta, seeds,
     dkv = torch.empty_like(kv)
     dq = attention_bwd_plain(q, *split_kv(kv, H), do, lse, delta, seeds,
                              rate, *split_kv(dkv, H), b_offset, v2)
+    return dq, dkv
+
+
+def cross_attention_kv_fused_bwd_split_plain(q, kv, do, lse, delta, seeds,
+                                             rate: float, bounds,
+                                             b_offset: int = 0,
+                                             v2: bool = False):
+    """Plain version of B3 with its dq pass split over the token ranges of
+    `bounds` (`split_bounds`): (dq, dKV) as
+    `cross_attention_kv_fused_bwd_plain`, dq summed per range in f32 and
+    the ranges added in split order, as the kernel's combine does."""
+    H = q.shape[1]
+    dkv = torch.empty_like(kv)
+    dq = attention_bwd_plain(q, *split_kv(kv, H), do, lse, delta, seeds,
+                             rate, *split_kv(dkv, H), b_offset, v2, bounds)
     return dq, dkv
 
 
@@ -340,31 +368,47 @@ def kv_splits(B: int, H: int, group_rows: int, N: int, sms: int) -> int:
     return len(split_bounds(N, splits))   # drop splits left without a block
 
 
-def _splits_for(q: torch.Tensor, N: int, group_rows: int, splits) -> int:
-    """The forward's KV split for this call: 1 except for bf16 at D = 256;
-    `splits` overrides the rule (tests hold every split against plain)."""
+def dq_splits(B: int, H: int, Q: int, N: int, sms: int) -> int:
+    """How many CTAs share the KV range of one q tile in B3's dq pass: the
+    rule of `kv_splits` on all Q rows of the call (the dq pass has no
+    per-group state to keep apart). The release fold (B=8, Q=2048: 512
+    CTAs) takes 1; B=1 at Q=256 takes up to 16. A folded call's dq does
+    NOT in general equal its G separate calls' bit for bit: the fold has
+    G times the rows, so it may take fewer splits, and a split sums each
+    KV range in f32 before adding the ranges. Nothing needs that equality:
+    the fold and the per-iteration paths already sum dK and dV over the
+    iterations in different orders."""
+    return kv_splits(B, H, Q, N, sms)
+
+
+def _splits_for(q: torch.Tensor, N: int, rows: int, splits) -> int:
+    """The KV split of this call's forward (`rows` the rows of one seed
+    group) or dq pass (`rows` = Q): 1 except for bf16 at D = 256; `splits`
+    overrides the rule (tests hold every split against plain). A split the
+    kernels do not take raises."""
     B, H, Q, D = q.shape
     if q.dtype != torch.bfloat16 or D != SPLIT_HEAD_DIM:
         if splits not in (None, 1):
-            raise ValueError("flash: only the bf16 D=256 forward splits KV")
+            raise ValueError("flash: only the bf16 D=256 kernels split KV")
         return 1
     if splits is None:
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        return kv_splits(B, H, group_rows, N, sms)
+        return kv_splits(B, H, rows, N, sms)
     if not 1 <= splits <= MAX_SPLITS or \
             len(split_bounds(N, splits)) != splits:
         raise ValueError(f"flash: splits={splits} for N={N}")
     return splits
 
 
-def _scratch(q: torch.Tensor, splits: int):
-    """The combine kernel's input: `splits` f32 partials of o, then their
-    logsumexp rows. None for an unsplit call."""
+def _scratch(q: torch.Tensor, splits: int, lse: bool = True):
+    """A split call's f32 scratch: `splits` partials of o (then their
+    logsumexp rows, `lse`) for the forward's combine, or of dq for B3's.
+    None for an unsplit call."""
     if splits == 1:
         return None
     B, H, Q, D = q.shape
-    return torch.empty(splits * B * H * Q * (D + 1), dtype=torch.float32,
-                       device=q.device)
+    return torch.empty(splits * B * H * Q * (D + int(lse)),
+                       dtype=torch.float32, device=q.device)
 
 
 _DROP_ARGS = [_I, ctypes.c_uint32, ctypes.c_float, _I, _I]
@@ -542,6 +586,15 @@ def flash_bwd(q: torch.Tensor, kv: torch.Tensor, do: torch.Tensor,
         return cross_attention_kv_fused_bwd_plain(
             q, kv, do, lse, delta, seeds, rate, b_offset,
             dropout_v2() if v2 is None else v2)
+    return _flash_bwd(q, kv, do, lse, delta, seeds, rate, None, b_offset, v2)
+
+
+def _flash_bwd(q, kv, do, lse, delta, seeds, rate: float,
+               splits: Optional[int], b_offset: int = 0,
+               v2: Optional[bool] = None):
+    """B3's launch on CUDA tensors; `splits` is the dq pass's KV split
+    (None: `dq_splits`; a split dq pass and its combine count as one
+    launch)."""
     _check(q, kv, "flash_bwd")
     _check_bwd(q, do, lse, delta, "flash_bwd")
     B, H, Q, D = q.shape
@@ -550,11 +603,15 @@ def flash_bwd(q: torch.Tensor, kv: torch.Tensor, do: torch.Tensor,
     lse, delta = lse.contiguous(), delta.contiguous()
     dq, dkv = torch.empty_like(q), torch.empty_like(kv)
     _aligned("flash_bwd", q, kv, do, dq, dkv)
+    splits = _splits_for(q, kv.shape[1], Q, splits)
+    scratch = _scratch(q, splits, lse=False)
     fn = _fn("parq_flash_bwd_kv_fused",
-             [_P] * 8 + [_I] * 5 + _DROP_ARGS + [_I, _P])
+             [_P] * 9 + [_I] * 6 + _DROP_ARGS + [_I, _P])
     _raise_on(fn(q.data_ptr(), kv.data_ptr(), do.data_ptr(), lse.data_ptr(),
                  delta.data_ptr(), seeds.data_ptr(), dq.data_ptr(),
-                 dkv.data_ptr(), B, H, Q, kv.shape[1], D,
+                 dkv.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), splits, B,
+                 H, Q, kv.shape[1], D,
                  *_drop_args(seeds, Q, rate, b_offset, v2),
                  int(q.dtype == torch.bfloat16), _stream(q)), "flash_bwd")
     flash_bwd.launches += 1
@@ -619,20 +676,33 @@ def flash_bwd_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_bwd_plain(q, k, v, do, lse, delta, seeds, rate, dk,
                                    dv, b_offset,
                                    dropout_v2() if v2 is None else v2)
+    return _flash_bwd_kv(q, k, v, do, lse, delta, seeds, rate, dk, dv, None,
+                         b_offset, v2)
+
+
+def _flash_bwd_kv(q, k, v, do, lse, delta, seeds, rate: float, dk, dv,
+                  splits: Optional[int], b_offset: int = 0,
+                  v2: Optional[bool] = None) -> torch.Tensor:
+    """The split-K/V backward's launch on CUDA tensors; `splits` as in
+    `_flash_bwd`."""
     _check_views(q, "flash_bwd_kv", k, v, dk, dv)
     _check_bwd(q, do, lse, delta, "flash_bwd_kv")
     B, H, Q, D = q.shape
+    N = k.shape[2]
     seeds = seeds.to(device=q.device, dtype=torch.int32).contiguous()
     q, do = q.contiguous(), do.contiguous()
     lse, delta = lse.contiguous(), delta.contiguous()
     dq = torch.empty_like(q)
     _aligned("flash_bwd_kv", q, k, v, do, dq, dk, dv)
+    splits = _splits_for(q, N, Q, splits)
+    scratch = _scratch(q, splits, lse=False)
     fn = _fn("parq_flash_bwd_kv", [_P, _KV, _KV] + [_P] * 5
-             + [_KV, _KV] + [_I] * 5 + _DROP_ARGS + [_I, _P])
+             + [_KV, _KV, _P] + [_I] * 6 + _DROP_ARGS + [_I, _P])
     _raise_on(fn(q.data_ptr(), _kv_arg(k), _kv_arg(v), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), seeds.data_ptr(),
-                 dq.data_ptr(), _kv_arg(dk), _kv_arg(dv), B, H, Q, k.shape[2],
-                 D, *_drop_args(seeds, Q, rate, b_offset, v2),
+                 dq.data_ptr(), _kv_arg(dk), _kv_arg(dv),
+                 None if scratch is None else scratch.data_ptr(), splits, B,
+                 H, Q, N, D, *_drop_args(seeds, Q, rate, b_offset, v2),
                  int(q.dtype == torch.bfloat16), _stream(q)), "flash_bwd_kv")
     flash_bwd_kv.launches += 1
     return dq

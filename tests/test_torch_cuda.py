@@ -15,9 +15,10 @@ from parq_torch.kernels import (flash_bwd, flash_cross_attention_kv_fused,
                                 flash_fwd_lse, sample_views,
                                 sample_views_bwd_mem)
 from parq_torch.kernels.cross_attention import (
-    MAX_SPLITS, _flash_fwd, _flash_fwd_lse, cross_attention_kv_fused_bwd_plain,
+    MAX_SPLITS, _flash_bwd, _flash_bwd_kv, _flash_fwd, _flash_fwd_lse,
+    attention_bwd_plain, cross_attention_kv_fused_bwd_plain,
     cross_attention_kv_fused_plain, cross_attention_kv_fused_train_plain,
-    split_bounds, wgmma_selftest)
+    split_bounds, split_kv, wgmma_selftest)
 from parq_torch.kernels.pixel_align import (sample_views_bwd_mem_plain,
                                             sample_views_plain,
                                             sample_views_sums)
@@ -123,7 +124,8 @@ def _hopper_inputs(gen, Q, N, B=1, H=4, D=256):
 
 
 def _splits(N):
-    """Every KV split the wrapper may choose at N, and the rule's (None)."""
+    """Every KV split the wrapper may choose at N (B2's, and B3's dq
+    pass's), and the rule's (None)."""
     return [None] + [s for s in range(1, MAX_SPLITS + 1)
                      if len(split_bounds(N, s)) == s]
 
@@ -171,21 +173,59 @@ def test_hopper_forward_matches_plain_at_every_split(gen, Q, G, N):
 @pytest.mark.parametrize("N", HOPPER_N)
 @pytest.mark.parametrize("Q,G", HOPPER_QG)
 def test_hopper_backward_matches_plain(gen, Q, G, N, rate):
-    """B3 in bf16 at D = 256: dq and dKV to 2e-2 of their largest element;
-    run twice, the results equal bit for bit (no atomics)."""
+    """B3 in bf16 at D = 256, at every KV split of its dq pass: dq and dKV
+    to 2e-2 of their largest element; run twice, the results equal bit for
+    bit (no atomics); dKV does not depend on the dq split."""
     q, kv = _hopper_inputs(gen, Q, N)
     do = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
     seeds = _seeds(G)
     o, lse = cross_attention_kv_fused_train_plain(q, kv, seeds, rate)
     delta = (do.float() * o.float()).sum(-1)
-    dq, dkv = flash_bwd(q, kv, do, lse, delta, seeds, rate)
     dq_ref, dkv_ref = cross_attention_kv_fused_bwd_plain(q, kv, do, lse,
                                                          delta, seeds, rate)
-    for got, want in ((dq, dq_ref), (dkv, dkv_ref)):
-        torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                                   atol=2e-2 * float(want.abs().max()))
-    dq2, dkv2 = flash_bwd(q, kv, do, lse, delta, seeds, rate)
-    assert torch.equal(dq, dq2) and torch.equal(dkv, dkv2)
+    before = flash_bwd.launches
+    dq, dkv = flash_bwd(q, kv, do, lse, delta, seeds, rate)
+    assert flash_bwd.launches == before + 1
+    for splits in _splits(N):
+        dq, dkv1 = _flash_bwd(q, kv, do, lse, delta, seeds, rate, splits)
+        assert torch.equal(dkv1, dkv)
+        for got, want in ((dq, dq_ref), (dkv, dkv_ref)):
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=2e-2 * float(want.abs().max()))
+        dq2, dkv2 = _flash_bwd(q, kv, do, lse, delta, seeds, rate, splits)
+        assert torch.equal(dq, dq2) and torch.equal(dkv, dkv2)
+
+
+@pytest.mark.parametrize("N", [7200, 1000])
+def test_hopper_split_kv_backward_at_every_dq_split(gen, N):
+    """B3 on separate natural (B, N, H·D) K and V at B=1, Q=256, dropout
+    0.1, at every dq split: dq and dK, dV to 2e-2 of their largest element,
+    two launches equal bit for bit."""
+    q, kv = _hopper_inputs(gen, 256, N)
+    H = q.shape[1]
+    k, v = (t.transpose(1, 2).contiguous().flatten(2)
+            for t in split_kv(kv, H))
+    kh, vh = (t.unflatten(-1, (H, 256)).transpose(1, 2) for t in (k, v))
+    do = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
+    seeds = _seeds(1)
+    o, lse = cross_attention_kv_fused_train_plain(q, kv, seeds, 0.1)
+    delta = (do.float() * o.float()).sum(-1)
+    dk_ref, dv_ref = torch.empty_like(kh), torch.empty_like(vh)
+    dq_ref = attention_bwd_plain(q, kh, vh, do, lse, delta, seeds, 0.1,
+                                 dk_ref, dv_ref)
+    for splits in _splits(N):
+        outs = []
+        for _ in range(2):
+            dk, dv = (torch.empty_like(t) for t in (k, v))
+            dkh, dvh = (t.unflatten(-1, (H, 256)).transpose(1, 2)
+                        for t in (dk, dv))
+            dq = _flash_bwd_kv(q, kh, vh, do, lse, delta, seeds, 0.1, dkh,
+                               dvh, splits)
+            outs.append((dq, dk, dv))
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+        for got, want in ((dq, dq_ref), (dkh, dk_ref), (dvh, dv_ref)):
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=2e-2 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),

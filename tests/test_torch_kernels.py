@@ -219,7 +219,9 @@ def test_split_forward_matches_jax_unsplit(rng, monkeypatch, splits):
 @pytest.mark.parametrize("B,H,rows,N,sms,want", [
     (8, 4, 256, 14400, 132, 2),    # release serving and phase-1 training
     (8, 4, 2048, 14400, 132, 1),   # one unfolded group of 2048 rows
-    (1, 4, 256, 14400, 132, 4),    # few CTAs: the cap
+    (1, 4, 256, 14400, 132, 15),   # B=1, the eval twin: 16 runs of 15
+                                   # blocks would leave the 16th empty
+    (1, 4, 256, 28800, 132, 16),   # B=1, the scaled config: the cap
     (1, 4, 256, 100, 132, 2),      # never more splits than 64-token blocks
     (2, 4, 200, 40, 132, 1),
 ])
