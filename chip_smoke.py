@@ -191,8 +191,25 @@ Phases, each printed on its own line; any failure exits non-zero:
                their own mean row, an argmax flip only at a near-tie), the
                F1 dicts within 0.15, per snippet B1 8, B2 8 and M1 1
                launches, M1 on the loss's 100 targets.
-               The files of the CLI, scaled, export, fit-sp, tp, vis and
-               rehearsal phases under build/ are deleted at the end.
+ 21. preprocess — the offline ScanNet preprocessing twin
+               (parq_torch/tools/scannet_preprocessing) on one synthetic
+               scene at ScanNet's sizes, from a seed: 120 frames of
+               640x480 16-bit P5 depth (a room's walls, floor and ceiling,
+               4 mm of noise, 3% zeros), ScanNet's intrinsics, header-only
+               1296x968 JPEGs, a loop of poses that view selection thins,
+               24 rotated boxes (one of degenerate scale, three outside the
+               room). parse_scan2cad, then both stages of the val
+               (nonoverlap) and train (overlap) splits through the
+               generator's CLI entry with --device cuda; the card's records
+               of the first 8 snippets of each split against the port's CPU
+               path: counts equal, ratios to 1e-12, the stage-2 pickles of
+               those snippets equal once loaded; frames read, snippets
+               written, ms a frame by part (reading the depth, uploading it,
+               the device passes by CUDA events) and the CPU path's passes;
+               the syncs of one scene, at most one a chunk of 16 frames.
+               The files of the CLI, scaled, export, fit-sp, tp, vis,
+               rehearsal and preprocess phases under build/ are deleted at
+               the end.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a GPU, or without the parq_torch
 package beside this file, it exits non-zero and prints no result.
@@ -204,7 +221,9 @@ import math
 import argparse
 import contextlib
 import os
+import pickle
 import shutil
+import struct
 import subprocess
 import sys
 import threading
@@ -3438,6 +3457,375 @@ def phase_rehearsal(smi_line):
     shutil.rmtree(REHEARSAL_DIR, ignore_errors=True)
 
 
+PREPROCESS_DIR = os.path.join(ROOT, "build", "chip_smoke_preprocess")
+# ScanNet's .sens intrinsics (fx, fy, cx, cy) at its 640x480 depth and
+# 1296x968 color streams; a smaller scene scales them
+SCANNET_DEPTH_K = (577.870605, 577.870605, 319.5, 239.5)
+SCANNET_COLOR_K = (1170.187988, 1170.187988, 647.75, 483.75)
+ROOM = np.array([6.0, 5.0, 2.8])     # the synthetic room, meters (z up)
+CATIDS = ("03001627", "04379243", "02933112", "02747177", "02871439",
+          "03211117", "04256520", "02808440", "99999999")
+SYMS = ("__SYM_NONE", "__SYM_ROTATE_UP_2", "__SYM_ROTATE_UP_4",
+        "__SYM_ROTATE_UP_INF")
+
+
+def _intrinsic(k, hw, full_hw):
+    sy, sx = hw[0] / full_hw[0], hw[1] / full_hw[1]
+    K = np.eye(4)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = (k[0] * sx, k[1] * sy,
+                                          (k[2] + 0.5) * sx - 0.5,
+                                          (k[3] + 0.5) * sy - 0.5)
+    return K
+
+
+def _qmul(a, b):
+    """Hamilton product of (w, x, y, z) quaternions: the rotation a after b."""
+    w1, x1, y1, z1 = a
+    w2, x2, y2, z2 = b
+    return np.array([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                     w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                     w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                     w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2])
+
+
+def _qz(angle):
+    """The quaternion of a turn by `angle` about z."""
+    return np.array([np.cos(angle / 2), 0.0, 0.0, np.sin(angle / 2)])
+
+
+def _camera_path(rng, frames):
+    """T_scan_camera of one loop 1.2 m around the room's middle at 1.4 m,
+    looking across the room and 20 degrees down (camera x right, y down,
+    z forward). A frame moves on along the loop with probability 0.6, else
+    only jitters, so view selection drops some frames."""
+    poses, arc = [], 0.0
+    step = 2 * np.pi / (0.6 * frames)
+    for i in range(frames):
+        if i and rng.rand() < 0.6:
+            arc += step
+        yaw = arc + np.pi + 0.3 + rng.normal(0, 0.003)
+        pitch = np.radians(20.0) + rng.normal(0, 0.003)
+        fwd = np.array([np.cos(pitch) * np.cos(yaw),
+                        np.cos(pitch) * np.sin(yaw), -np.sin(pitch)])
+        right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+        T = np.eye(4)
+        T[:3, :3] = np.stack([right, np.cross(fwd, right), fwd], 1)
+        T[:3, 3] = (ROOM / 2 + 1.2 * np.array([np.cos(arc), np.sin(arc), 0.0])
+                    + rng.normal(0, 0.002, 3))
+        T[2, 3] = 1.4 + rng.normal(0, 0.002)
+        poses.append(T)
+    return poses
+
+
+def _render_depth(T, K, hw, rng):
+    """uint16 depth (mm) of the room's walls, floor and ceiling seen from
+    T_scan_camera: the ray's z at its first hit, 4 mm of noise, 3% of the
+    pixels 0 (no reading)."""
+    H, W = hw
+    u, v = np.meshgrid(np.arange(W), np.arange(H))
+    rays = np.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1],
+                     np.ones((H, W))], -1) @ T[:3, :3].T
+    o = T[:3, 3]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.where(rays > 0, (ROOM - o) / rays,
+                     np.where(rays < 0, -o / rays, np.inf)).min(-1)
+    mm = np.rint(t * 1000 + rng.normal(0, 4, t.shape))
+    mm[rng.rand(H, W) < 0.03] = 0
+    return np.clip(mm, 0, 65535).astype(np.uint16)
+
+
+def _box_models(rng, n, q_world_scan, t_world_scan):
+    """n scan2cad model records: furniture on the floor (turned about z,
+    the floor through its base), boxes through a wall (turned every way),
+    one of degenerate scale (skipped by the parser), and the last three
+    outside the room (behind two walls, above the ceiling): no depth point
+    falls in them."""
+    from parq_torch.tools.scannet_preprocessing.processing_utils import \
+        quat_to_matrix
+    outside = [(-2.0, 2.5, 1.0), (3.0, 7.5, 1.0), (3.0, 2.5, 6.0)]
+    models = []
+    for i in range(n):
+        half = rng.uniform([0.15, 0.15, 0.2], [0.6, 0.5, 0.6])
+        if i >= n - 3:
+            center, q = np.array(outside[i - (n - 3)]), _qz(rng.rand() * 6)
+        elif i % 3 == 2:
+            wall = rng.randint(4)
+            center = np.array([rng.uniform(0.5, ROOM[0] - 0.5),
+                               rng.uniform(0.5, ROOM[1] - 0.5),
+                               rng.uniform(0.5, 2.2)])
+            center[wall % 2] = 0.0 if wall < 2 else ROOM[wall % 2]
+            q = rng.normal(size=4)
+            q /= np.linalg.norm(q)
+        else:
+            center = np.array([rng.uniform(0.5, ROOM[0] - 0.5),
+                               rng.uniform(0.5, ROOM[1] - 0.5),
+                               half[2] - 0.05])
+            q = _qz(rng.uniform(0, 2 * np.pi))
+        scale = rng.uniform(0.8, 1.25, 3)
+        if i == 3:
+            scale[0] = 1e-4
+        offset = rng.normal(0, 0.05, 3)
+        q_wo = _qmul(q_world_scan, q)
+        # T_scan_object = T_scan_world @ T_world_object @ offset puts the
+        # box's center at `center` of the scan with rotation q
+        t_wo = (quat_to_matrix(q_world_scan) @ center + t_world_scan
+                - quat_to_matrix(q_wo) @ offset)
+        models.append({
+            "trs": {"translation": t_wo.tolist(), "rotation": q_wo.tolist(),
+                    "scale": scale.tolist()},
+            "center": offset.tolist(), "bbox": (half / scale).tolist(),
+            "catid_cad": CATIDS[i % len(CATIDS)], "id_cad": f"cad{i:03d}",
+            "sym": SYMS[i % len(SYMS)]})
+    return models
+
+
+def _jpeg_header(h, w):
+    """A baseline JPEG's markers up to its frame header (SOI, APP0, SOF0,
+    EOI): enough for a reader of its size, no image data."""
+    app0 = b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+    sof = struct.pack(">BHHB", 8, h, w, 3) + b"\x01\x22\x00\x02\x11\x01\x03\x11\x01"
+    return (b"\xff\xd8\xff\xe0" + struct.pack(">H", len(app0) + 2) + app0
+            + b"\xff\xc0" + struct.pack(">H", len(sof) + 2) + sof
+            + b"\xff\xd9")
+
+
+def write_synthetic_scannet(root, scenes=("scene0000_00",), seed=0,
+                            frames=120, depth_hw=(480, 640),
+                            color_hw=(968, 1296), boxes=24):
+    """A ScanNet raw layout under root/scans (poses, intrinsics, 16-bit P5
+    depth, header-only color JPEGs) and a scan2cad-shaped
+    root/full_annotations.json, all from `seed`; ScanNet's sizes by
+    default. Returns (scans dir, JSON path)."""
+    rng = np.random.RandomState(seed)
+    scans = os.path.join(root, "scans")
+    annotations = []
+    for scene in scenes:
+        sd = os.path.join(scans, scene)
+        for sub in ("pose", "intrinsic", "color", "depth"):
+            os.makedirs(os.path.join(sd, sub), exist_ok=True)
+        Kd = _intrinsic(SCANNET_DEPTH_K, depth_hw, (480, 640))
+        Kc = _intrinsic(SCANNET_COLOR_K, color_hw, (968, 1296))
+        np.savetxt(os.path.join(sd, "intrinsic", "intrinsic_depth.txt"), Kd)
+        np.savetxt(os.path.join(sd, "intrinsic", "intrinsic_color.txt"), Kc)
+        header = _jpeg_header(*color_hw)
+        for fid, T in enumerate(_camera_path(rng, frames)):
+            name = f"frame-{fid:06d}"
+            np.savetxt(os.path.join(sd, "pose", f"{name}.pose.txt"), T)
+            with open(os.path.join(sd, "color", f"{name}.color.jpg"),
+                      "wb") as f:
+                f.write(header)
+            depth = _render_depth(T, Kd, depth_hw, rng)
+            with open(os.path.join(sd, "depth", f"{name}.depth.pgm"),
+                      "wb") as f:
+                f.write(b"P5\n%d %d\n65535\n" % (depth_hw[1], depth_hw[0]))
+                f.write(depth.astype(">u2").tobytes())
+        q_world_scan = _qz(rng.uniform(0, 2 * np.pi))
+        t_world_scan = rng.uniform(-2, 2, 3)
+        annotations.append({
+            "id_scan": scene, "n_aligned_models": boxes,
+            "trs": {"translation": t_world_scan.tolist(),
+                    "rotation": q_world_scan.tolist(),
+                    "scale": [1.0, 1.0, 1.0]},
+            "aligned_models": _box_models(rng, boxes, q_world_scan,
+                                          t_world_scan)})
+    path = os.path.join(root, "full_annotations.json")
+    with open(path, "w") as f:
+        json.dump(annotations, f)
+    return scans, path
+
+
+def _snippet_gaps(card, cpu, what):
+    """Hold the CPU path's snippet records to the card's: frame lists,
+    poses, intrinsics and counts equal, ratios to 1e-12; the largest ratio
+    gap."""
+    check(len(card) == len(cpu), f"{what}: {len(card)} snippets on the "
+          f"card, {len(cpu)} on the CPU")
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        check(a["image_ids"] == b["image_ids"], f"{what}: snippet "
+              f"{a['snippet_id']} frames {a['image_ids']} vs {b['image_ids']}")
+        check(a["point_cloud_num_list"].dtype == np.int64
+              and np.array_equal(a["point_cloud_num_list"],
+                                 b["point_cloud_num_list"]),
+              f"{what}: snippet {a['snippet_id']} counts "
+              f"{a['point_cloud_num_list']} on the card, "
+              f"{b['point_cloud_num_list']} on the CPU")
+        gap = float(np.abs(a["truncation_ratio_list"]
+                           - b["truncation_ratio_list"]).max())
+        check(gap <= 1e-12, f"{what}: snippet {a['snippet_id']} ratios "
+              f"differ by {gap:.3e} (limit 1e-12)")
+        worst = max(worst, gap)
+        for key in ("T_scan_camera", "intrinsic"):
+            check(all(np.array_equal(x, y) and x.dtype == y.dtype
+                      for x, y in zip(a[key], b[key])),
+                  f"{what}: snippet {a['snippet_id']} {key} differ")
+    return worst
+
+
+def _roidb_of(scene_record, out):
+    """Stage 2 over one image_anno record written to `out`: the roidb list
+    and the scene's loaded scene_anno pickle."""
+    from parq_torch.tools.scannet_preprocessing import \
+        generate_scannet_anno_snippet as gen
+    os.makedirs(out)
+    with open(os.path.join(out, f"image_anno_{scene_record['scene_name']}"
+                           ".pkl"), "wb") as f:
+        pickle.dump(scene_record, f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        items = gen.get_roidb(out, "check")
+    with open(os.path.join(out, "scene_anno",
+                           f"{scene_record['scene_name']}.pkl"), "rb") as f:
+        return items, pickle.load(f)
+
+
+def _same_tree(a, b):
+    """Loaded pickles equal: dicts and lists item by item, arrays by value
+    and dtype."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same_tree(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b))
+    return type(a) is type(b) and a == b
+
+
+def preprocess_times(gen, ctx, fids, workers, cpu_frames=4):
+    """ms a frame of the card's stage 1 on `fids`, by part: reading the
+    depth into pinned memory with the threads (host clock), uploading it and
+    the device passes (CUDA events); and the CPU path's device passes on
+    the first `cpu_frames` of them (host clock)."""
+    from concurrent.futures import ThreadPoolExecutor
+    paths = [gen._depth_file(ctx["scene_dir"], f) for f in fids]
+    corners = gen.camera_corners(ctx, fids)
+    read_s = upload_ms = passes_ms = 0.0
+    with ThreadPoolExecutor(workers) as pool:
+        for s in range(0, len(fids), gen.CHUNK_FRAMES):
+            sel = slice(s, s + gen.CHUNK_FRAMES)
+            t0 = time.perf_counter()
+            host = [gen.read_depth_chunk(paths[sel], pool, pin=True),
+                    torch.from_numpy(corners[sel]).pin_memory()]
+            read_s += time.perf_counter() - t0
+            dev = []
+            upload_ms += _elapsed_ms(lambda: dev.extend(
+                a.to("cuda", non_blocking=True) for a in host))
+            passes_ms += _elapsed_ms(
+                lambda: gen.chunk_visibility(dev[0], dev[1], ctx))
+        first = gen.read_depth_chunk(paths[:cpu_frames], pool)
+    t0 = time.perf_counter()
+    gen.chunk_visibility(first, torch.from_numpy(corners[:cpu_frames]), ctx)
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / cpu_frames
+    n = len(fids)
+    return read_s * 1e3 / n, upload_ms / n, passes_ms / n, cpu_ms
+
+
+def phase_preprocess(smi_line, snippets_checked=8):
+    """The offline ScanNet preprocessing twin at ScanNet's sizes on one
+    synthetic scene: parse_scan2cad, then stage 1 and 2 of both splits
+    through the generator's CLI entry on the card; the card's snippet
+    records held against the port's CPU path on the first
+    `snippets_checked` snippets of each split, and the stage-2 pickles of
+    those snippets equal; ms per frame by part; the syncs of one scene."""
+    from parq_torch.tools.scannet_preprocessing import (
+        generate_scannet_anno_snippet as gen, parse_scan2cad)
+    from parq_torch.tools.syncs import count_syncs
+    shutil.rmtree(PREPROCESS_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    scene = "scene0000_00"
+    scans, json_path = write_synthetic_scannet(PREPROCESS_DIR, (scene,))
+    anno = os.path.join(PREPROCESS_DIR, "anno")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        parse_scan2cad.main(["--scan2cad", json_path, "--out", anno])
+    with open(os.path.join(anno, f"{scene}.pkl"), "rb") as f:
+        n_boxes = len(pickle.load(f)["aligned_models"])
+    check(n_boxes == 23, f"preprocess: parse_scan2cad kept {n_boxes} of 24 "
+          "boxes (want 23: one of degenerate scale)")
+    write_s = time.perf_counter() - t0
+    workers = os.cpu_count() or 1
+    lines, stage_s, frames, snippets, worst, hist = ({}, {}, {}, {},
+                                                     {}, {})
+    for split, variant in (("val", "nonoverlap"), ("train", "overlap")):
+        out = os.path.join(PREPROCESS_DIR, split)
+        text = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            gen.main(["--scans", scans, "--anno", anno, "--out", out,
+                      "--split", split, "--device", "cuda"])
+        stage_s[split] = time.perf_counter() - t1
+        lines[split] = text.getvalue().splitlines()
+        with open(os.path.join(out, f"image_anno_{scene}.pkl"), "rb") as f:
+            card = pickle.load(f)
+        with open(os.path.join(out, f"scannet_{split}_gt_roidb.pkl"),
+                  "rb") as f:
+            roidb = pickle.load(f)
+        check(lines[split] == ["stage snippets: 1/1 scenes",
+                               f"wrote {len(roidb)} snippets to "
+                               f"{out}/scannet_{split}_gt_roidb.pkl"],
+              f"preprocess {split}: stdout {lines[split]}")
+        ctx = gen.load_scene(scans, anno, scene, variant, 3)
+        check([s["image_ids"] for s in card["snippets"]] == ctx["snippets"],
+              f"preprocess {split}: the pickle's snippets are not the "
+              "view selection's")
+        check(ctx["image_shape"] == (968, 1296), f"preprocess: image shape "
+              f"{ctx['image_shape']} from the color JPEG")
+        frames[split] = len({f for s in ctx["snippets"] for f in s})
+        snippets[split] = (len(card["snippets"]), len(roidb))
+        levels = [gen.get_level(c, r) for s in card["snippets"] for c, r in
+                  zip(s["point_cloud_num_list"], s["truncation_ratio_list"])]
+        hist[split] = np.bincount(levels, minlength=4).tolist()
+        head = ctx["snippets"][:snippets_checked]
+        t1 = time.perf_counter()
+        cpu = gen.snippet_records(ctx, head, device="cpu", workers=workers)
+        cpu_s = time.perf_counter() - t1
+        worst[split] = (_snippet_gaps(card["snippets"][:len(head)], cpu,
+                                      f"preprocess {split}"), cpu_s,
+                        len({f for s in head for f in s}))
+        got = _roidb_of(dict(card, snippets=card["snippets"][:len(head)]),
+                        os.path.join(PREPROCESS_DIR, f"{split}_card"))
+        want = _roidb_of(dict(card, snippets=cpu),
+                         os.path.join(PREPROCESS_DIR, f"{split}_cpu"))
+        check(_same_tree(got, want), f"preprocess {split}: stage-2 pickles "
+              "of the card's and the CPU's records differ")
+    ctx = gen.load_scene(scans, anno, scene, "overlap", 3)
+    fids = sorted({f for s in ctx["snippets"] for f in s})
+    n_chunks = -(-len(fids) // gen.CHUNK_FRAMES)
+    syncs, sites = count_syncs(lambda: gen.process_scene(
+        scans, anno, os.path.join(PREPROCESS_DIR, "train"), scene,
+        "overlap", 3, device="cuda", workers=workers))
+    check(syncs <= n_chunks, f"preprocess: {syncs} syncs in one scene of "
+          f"{n_chunks} chunks (at most one a chunk): {dict(sites)}")
+    read_ms, upload_ms, dev_ms, cpu_ms = preprocess_times(gen, ctx, fids,
+                                                          workers)
+    phase("preprocess", f"[{smi_line}] one synthetic scene at ScanNet's "
+          f"sizes (640x480 16-bit P5 depth, {len(fids)} frames, 24 boxes, "
+          f"{n_boxes} kept by parse_scan2cad; written in {write_s:.1f} s): "
+          + "; ".join(f"{split}: {frames[split]} frames read, "
+                      f"{snippets[split][0]} snippets written, "
+                      f"{snippets[split][1]} in the roidb, box levels 0-3 "
+                      f"{hist[split]}, the CLI "
+                      f"{stage_s[split]:.2f} s "
+                      f"({stage_s[split] * 1e3 / frames[split]:.2f} ms a "
+                      "frame)" for split in stage_s))
+    phase("preprocess", "card vs the CPU path on the first "
+          f"{snippets_checked} snippets a split: counts equal, stage-2 "
+          "pickles equal, ratios within " + ", ".join(
+              f"{w[0]:.1e} ({split}, {w[2]} frames, CPU path "
+              f"{w[1] * 1e3 / w[2]:.1f} ms a frame with its reads)"
+              for split, w in worst.items()) + " (limit 1e-12)")
+    phase("preprocess", f"card ms a frame over {len(fids)} frames in "
+          f"chunks of {gen.CHUNK_FRAMES} ({workers} reading threads): read "
+          f"{read_ms:.3f} (host), upload {upload_ms:.3f}, device passes "
+          f"{dev_ms:.3f} (CUDA events); the CPU path's passes on 4 of "
+          f"them {cpu_ms:.1f} ms a frame; syncs of one scene {syncs} for "
+          f"{n_chunks} chunks ({dict(sites)}); phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(PREPROCESS_DIR, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3503,6 +3891,7 @@ def main():
         phase_fit_sp(smi_line)
         phase_bench(cfg, train_counts, TRAIN_STEPS, smi_line)
         phase_rehearsal(smi_line)
+        phase_preprocess(smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

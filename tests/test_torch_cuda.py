@@ -673,3 +673,83 @@ def test_count_syncs_names_the_callers_line(gen):
     assert n == 1 and dict(sites) == {f"tests/test_torch_cuda.py:{line}": 1}
     n, sites = count_syncs(lambda: _read_back(x))
     assert n == 1 and not any("syncs.py" in k for k in sites)
+
+
+def test_preprocess_device_functions_match_plain(gen):
+    """The offline ScanNet preprocessing's three device functions on the
+    card against their plain per-frame numpy versions at ScanNet's depth
+    size (640x480, 24 rotated boxes, zeros in the depth): depth meters
+    equal, points to 1e-12 of the plain ones, counts equal, ratios to
+    1e-12."""
+    import numpy as np
+    from parq_torch.tools.scannet_preprocessing import processing_utils as pu
+    rng = np.random.RandomState(0)
+    F, H, W, K = 3, 480, 640, 24
+    Kd = np.eye(4, dtype=np.float32)
+    Kd[0, 0], Kd[1, 1], Kd[0, 2], Kd[1, 2] = 577.87, 577.87, 319.5, 239.5
+    Kc = np.eye(4, dtype=np.float32)
+    Kc[0, 0], Kc[1, 1], Kc[0, 2], Kc[1, 2] = 1170.19, 1170.19, 647.75, 483.75
+    mm = rng.randint(500, 6000, (F, H, W)) * (rng.rand(F, H, W) > 0.05)
+    depth = mm.astype(np.float32) / 1000.0
+    corners = np.stack([np.stack([
+        pu.make_corners(np.repeat(rng.uniform(0.2, 1.0, 3), 2) * np.tile([-1, 1], 3))
+        @ pu.quat_to_matrix(rng.normal(size=4)).T
+        + [rng.uniform(-2, 2), rng.uniform(-1.5, 1.5), rng.uniform(1, 5)]
+        for _ in range(K)]) for _ in range(F)])
+    dev_depth = torch.from_numpy(mm).cuda().float() / torch.full(
+        (), 1000.0, device="cuda")
+    assert torch.equal(dev_depth.cpu(), torch.from_numpy(depth))
+    points, valid = pu.depth_to_points(torch.from_numpy(depth).cuda(), Kd)
+    c = torch.from_numpy(corners).cuda()
+    counts = pu.points_inside_corners(c, points, valid,
+                                      budget_bytes=1 << 28).cpu().numpy()
+    ratios = pu.fov_truncation_ratio(c, (968, 1296), Kc).cpu().numpy()
+    for f in range(F):
+        want = pu.depth_to_point_cloud(depth[f], Kd)
+        got = points[f][valid[f]].cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+        np.testing.assert_array_equal(
+            counts[f], pu.points_inside_corners_plain(corners[f], want))
+        np.testing.assert_allclose(
+            ratios[f], pu.fov_truncation_ratio_plain(corners[f], (968, 1296),
+                                                     Kc),
+            rtol=1e-12, atol=1e-12)
+    assert counts.max() > 1000
+
+
+def test_preprocess_scene_card_equals_cpu(gen, tmp_path):
+    """process_scene on the card writes the records the CPU path writes
+    (chip_smoke's synthetic room at 240x320, 30 frames, 24 boxes), with at
+    most one sync a chunk."""
+    import contextlib
+    import io
+    import pickle
+    import numpy as np
+    import chip_smoke
+    from parq_torch.tools.scannet_preprocessing import (
+        generate_scannet_anno_snippet as pgen, parse_scan2cad)
+    from parq_torch.tools.syncs import count_syncs
+    scans, jpath = chip_smoke.write_synthetic_scannet(
+        str(tmp_path), frames=30, depth_hw=(240, 320))
+    anno = str(tmp_path / "anno")
+    outs = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        parse_scan2cad.generate_anno(jpath, anno)
+        for device in ("cuda", "cpu"):
+            out = tmp_path / device
+            out.mkdir()
+            syncs, _ = count_syncs(lambda: pgen.process_scene(
+                scans, anno, str(out), "scene0000_00", "overlap", 3,
+                device=device, workers=4))
+            with open(out / "image_anno_scene0000_00.pkl", "rb") as f:
+                outs[device] = (pickle.load(f), syncs)
+    (card, syncs), (cpu, _) = outs["cuda"], outs["cpu"]
+    assert 0 < syncs <= -(-30 // pgen.CHUNK_FRAMES)
+    assert len(card["snippets"]) == len(cpu["snippets"]) > 0
+    for a, b in zip(card["snippets"], cpu["snippets"]):
+        assert a["image_ids"] == b["image_ids"]
+        np.testing.assert_array_equal(a["point_cloud_num_list"],
+                                      b["point_cloud_num_list"])
+        np.testing.assert_allclose(a["truncation_ratio_list"],
+                                   b["truncation_ratio_list"], rtol=1e-12,
+                                   atol=1e-12)
