@@ -11,10 +11,11 @@ power limit), `host_cpu` (the model name in /proc/cpuinfo), `wall_ms` (per
 iteration), `device_busy_ms` (the sum of the kernels' device times of one
 iteration profiled with torch.profiler after the timed window; null when
 the profiler saw none) and `launches_per_iter` (each hand-written kernel's
-launches in the timed window over the iterations). The rate is a wall
-rate: an eager forward is launched from the host, so where the host is
-slow the rate falls while device_busy_ms stays; read the two together,
-with host_cpu.
+launches in the timed window over the iterations). The forward and the
+step are captured once as CUDA graphs and replayed (parq_torch/graphs.py,
+the counterpart of bench.py's `jax.jit`), so the host launches one graph
+an iteration; the rate is still a wall rate: read it with device_busy_ms
+(the kernels of one replay) and host_cpu.
 
 Protocol, as bench.py's: the release model (`ModelConfig()`: ResNet50-FPN
 concat-1024, 3 x 320x240, 64 ray samples, dim 1024, 4 heads, FFN 768,
@@ -22,11 +23,11 @@ L=8, Q=256, dropout 0.1), random weights from seed 0, the synthetic batch
 of `__graft_entry__._batch` (`make_batch(list(range(B)))`) moved to the
 device once. "frames" count camera views: rate = B·T·iters / wall seconds.
 Eval (`measure`): two device batches, x and x reversed along the batch
-axis, taken by i % 2; every output leaf summed in f32 into a device
-accumulator; no host read and no host-to-device copy in the timed window
-beyond the forward's own, one synchronize at its end. The warm-up runs the
-forward on both batches, so the first-use nvcc build and cuDNN's
-autotuning stay outside the window. Train (`measure_train`): B=8 bf16,
+axis, taken by i % 2 and copied on the device into the graph's static
+inputs; every output leaf summed in f32 into a device accumulator; no host
+read and no host-to-device copy in the timed window, one synchronize at
+its end. The warm-up runs the forward on both batches, so the first-use
+nvcc build, cuDNN's autotuning and the capture stay outside the window. Train (`measure_train`): B=8 bf16,
 the port's AdamW at a constant lr 1e-4 with a global-norm clip of 1.0, the
 default LossConfig, one torch.Generator threaded through the steps (as the
 JAX loop splits its key), the loss summed on the device.
@@ -72,6 +73,7 @@ import torch
 from . import resolve_device
 from .config import ModelConfig
 from .data.synthetic import make_batch, to_device
+from .graphs import Graphed
 from .models import BATCH_KEYS, build_model
 from .train.__main__ import TRAIN_KEYS
 
@@ -174,10 +176,11 @@ def build(batch_size: int, dtype: str = "float32", seed: int = 0,
     dev = resolve_device(device)
     cfg = dataclasses.replace(cfg or ModelConfig(), compute_dtype=dtype)
     model = build_model(cfg, seed=seed, device=dev)
+    graphed = Graphed(model)       # bench.py's `@jax.jit fwd`
 
     def fwd(batch):
         with torch.inference_mode():
-            return model(batch)
+            return graphed(batch)
     return fwd, bench_batch(cfg, batch_size, dev)
 
 
@@ -226,7 +229,7 @@ def build_train(batch_size: int, dtype: str = "bfloat16",
     """(step, batch, generator): one train step of the release model (or
     `cfg`) in `dtype` — AdamW at a constant lr 1e-4, clip 1.0, the default
     LossConfig — on a synthetic batch with its boxes on the device."""
-    from .train.train_step import make_optimizer, train_step
+    from .train.train_step import make_graphed_train_step, make_optimizer
     dev = resolve_device(device)
     cfg = dataclasses.replace(cfg or ModelConfig(), compute_dtype=dtype)
     if dropout_rate is not None:
@@ -234,10 +237,9 @@ def build_train(batch_size: int, dtype: str = "bfloat16",
         # a headline configuration
         cfg = dataclasses.replace(cfg, dropout_rate=dropout_rate)
     net = build_model(cfg, seed=seed, device=dev).train()
-    opt = make_optimizer(net, lr=1e-4)
-
-    def step(batch, generator):
-        return train_step(net, opt, batch, generator, max_norm=1.0)
+    step = make_graphed_train_step(net, make_optimizer(net, lr=1e-4,
+                                                        capturable=True),
+                                   max_norm=1.0)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     return step, bench_batch(cfg, batch_size, dev, TRAIN_KEYS), gen
 

@@ -18,6 +18,18 @@ MAX_SYMS = 50
 _CORNER_SIGNS = np.array(
     [[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
      [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], dtype=np.float32)
+_CORNER_SIGNS_ON = {}   # (dtype, device) → the signs, uploaded once
+
+
+def corner_signs(dtype: torch.dtype, device) -> torch.Tensor:
+    """The (8, 3) corner signs on `device`, uploaded on first use and
+    cached, so a step or a captured graph makes no host copy."""
+    key = (dtype, torch.device(device))
+    signs = _CORNER_SIGNS_ON.get(key)
+    if signs is None:
+        signs = _CORNER_SIGNS_ON[key] = torch.as_tensor(
+            _CORNER_SIGNS, dtype=dtype, device=device)
+    return signs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,9 +83,8 @@ class Obb3D:
         """8 corners in the object frame, (..., 8, 3), reference order."""
         lo = self.bb3_min_object[..., None, :]
         hi = self.bb3_max_object[..., None, :]
-        signs = torch.as_tensor(_CORNER_SIGNS, dtype=self.data.dtype,
-                                device=self.data.device)
-        return lo + (hi - lo) * signs
+        return lo + (hi - lo) * corner_signs(self.data.dtype,
+                                             self.data.device)
 
 
 def pad_obbs_np(bb3: np.ndarray, T_world_object: np.ndarray,

@@ -8,6 +8,7 @@
 | the same two, K and V as two buffers (kv_fused=False) | cross_attention.flash_fwd_lse_kv and flash_bwd_kv |
 | pixel_align_pallas._pallas_sample_bwd_mem | pixel_align.sample_views_bwd_mem (B4) |
 | ops/hungarian.solve_lap (lax loops, no pallas_call) | lap.solve_lap (M1) |
+| models/decoder._grouped_keep (jax.random, no pallas_call) | dropout.draw_keep (the keep masks) |
 
 B2 and B3 in bf16 at the release head dim (256) are the Hopper kernels of
 ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (wgmma on TMA-fed
@@ -23,7 +24,9 @@ loads every view's taps before its first FMA; it writes the memory's
 dtype. M1 (``csrc/lap.cu``) solves the matcher's assignments on the card,
 one warp per (iteration, sample) pair on cost rows staged in shared
 memory, in JAX's f32 arithmetic: the train step no longer copies its
-costs to the host.
+costs to the host. The keep-mask kernel (``csrc/dropout.cu``) draws the
+decoder's dropout masks from device seeds with the flash kernels' v1
+counter hash, so the training step reads nothing back.
 
 The CLI twins (``parq_torch/cli``) and the config tree
 (``parq_torch/config``) changed no kernel: `Trainer.fit` launches B1,
@@ -41,11 +44,14 @@ B2 run through the custom ops ``parq::sample_views`` and
 `torch.export` program of the eval forward (`parq_torch.export`) launches
 them, and counts them, as the live model does.
 `SERVE_KERNELS` are the ones a forward for serving launches; the training
-step launches all but the eval form of B2.
+step launches all but the eval form of B2. A CUDA graph's replay runs no
+Python, so the graph layer (``parq_torch/graphs.py``) adds to these counts
+on every replay the launches its capture recorded.
 """
 from .cross_attention import (flash_bwd, flash_bwd_kv,
                               flash_cross_attention_kv_fused, flash_fwd_lse,
                               flash_fwd_lse_kv)
+from .dropout import draw_keep
 from .lap import solve_lap
 from .pixel_align import (pixel_aligned_features_kernel, sample_views,
                           sample_views_bwd_mem)
@@ -59,6 +65,7 @@ KERNELS = {
     "flash_cross_attention_fwd_train_split": flash_fwd_lse_kv,
     "flash_cross_attention_bwd_split": flash_bwd_kv,
     "lap_solve": solve_lap,
+    "dropout_keep_mask": draw_keep,
 }
 SERVE_KERNELS = ("pixel_align_sample", "flash_cross_attention_fwd")
 
@@ -72,7 +79,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "SERVE_KERNELS", "flash_bwd", "flash_bwd_kv",
+__all__ = ["KERNELS", "SERVE_KERNELS", "draw_keep", "flash_bwd",
+           "flash_bwd_kv",
            "flash_cross_attention_kv_fused", "flash_fwd_lse",
            "flash_fwd_lse_kv",
            "launch_counts", "pixel_aligned_features_kernel",

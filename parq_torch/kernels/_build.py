@@ -35,6 +35,7 @@ LIBRARIES = {
     "cross_attention": ("cross_attention", "flash_fwd_sm90",
                         "flash_bwd_sm90"),
     "lap": ("lap",),
+    "dropout": ("dropout",),
 }
 SOURCES = tuple(LIBRARIES)
 CSRC = Path(__file__).resolve().parents[1] / "csrc"

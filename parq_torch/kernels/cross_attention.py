@@ -156,10 +156,14 @@ def _seed_vector(dropout_seed, rate: float, Q: int, q_tile, device
     """The argument checks of the JAX package's `_prep_fused_args`: G
     seeds force q_tile = Q/G, and a scalar seed with a q tile < Q under
     dropout is refused (it would repeat the mask in every tile). Returns
-    the (G,) int32 seeds on `device`."""
+    the (G,) int32 seeds on `device`. A tensor of seeds on `device` (the
+    decoder's, `DropoutDraws.flash_seeds`) is reshaped and cast there and
+    never goes through the host; Python ints (the tests, the CPU) are
+    uploaded."""
     if rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
-    seeds = torch.as_tensor(0 if dropout_seed is None else dropout_seed)
+    seeds = (dropout_seed if torch.is_tensor(dropout_seed)
+             else torch.as_tensor(0 if dropout_seed is None else dropout_seed))
     seeds = seeds.reshape(-1).to(device=device, dtype=torch.int32)
     G = seeds.numel()
     if G > 1:

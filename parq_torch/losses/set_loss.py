@@ -28,6 +28,20 @@ for _s, _m in enumerate(_SYM_COUNT):
     for _k in range(_m):
         _ANGLES[_s, _k] = _k * 2.0 * math.pi / _m
         _VALID[_s, _k] = True
+_TABLES = {}    # device → (R_y of every angle (144, 9), valid (144,)), once
+
+
+def _sym_tables(device):
+    """The symmetry rotations and their validity on `device`, uploaded on
+    first use and cached, so a step or a captured graph makes no host
+    copy."""
+    key = torch.device(device)
+    tables = _TABLES.get(key)
+    if tables is None:
+        tables = _TABLES[key] = (
+            roty(torch.as_tensor(_ANGLES, device=device)).reshape(4 * 36, 9),
+            torch.as_tensor(_VALID, device=device).reshape(-1))
+    return tables
 
 
 class Targets(NamedTuple):
@@ -70,16 +84,24 @@ def rotation_loss_sym(R_pred: torch.Tensor, R_tgt: torch.Tensor,
     min over the sym class's angles k of mean((R_pred − R_tgt·R_y(k))²),
     by the trace identity (‖R_tgt·R_k‖ = ‖R_tgt‖)."""
     dev = R_pred.device
-    Rk = roty(torch.as_tensor(_ANGLES, device=dev)).reshape(4 * 36, 9)
+    Rk, valid = _sym_tables(dev)
     N = R_pred.shape[0]
     sq = R_pred.square().sum((-2, -1)) + R_tgt.square().sum((-2, -1))
     M = torch.einsum("nji,njk->nik", R_tgt, R_pred).reshape(N, 9)
     per = (sq[:, None] - 2.0 * (M @ Rk.T)).clamp(min=0.0) / 9.0
-    valid = torch.as_tensor(_VALID, device=dev).reshape(-1)
     per = torch.where(valid[None], per, torch.full((), float("inf"),
                                                    device=dev))
     per_sym = per.reshape(N, 4, 36).min(dim=-1).values    # (N, 4)
     return torch.gather(per_sym, 1, sym.long()[:, None])[:, 0]
+
+
+def class_weights(num_semcls: int, bg_cls_weight: float,
+                  device) -> torch.Tensor:
+    """(num_semcls + 1,) f32: 1 for every class, `bg_cls_weight` for the
+    background, built on `device` (an indexed store of a Python float
+    would be a blocking upload)."""
+    cls = torch.arange(num_semcls + 1, device=device)
+    return torch.where(cls == num_semcls, bg_cls_weight, 1.0)
 
 
 def set_loss(outputs: Dict[str, torch.Tensor], targets: Targets,
@@ -131,8 +153,7 @@ def _set_loss(outputs, targets, uniforms, generator, loss_weight,
 
     tgt_cls = torch.where(matched, pick(t.labels),
                           torch.full((), num_semcls, device=a.device))
-    class_weight = torch.ones(num_semcls + 1, device=a.device)
-    class_weight[num_semcls] = bg_cls_weight
+    class_weight = class_weights(num_semcls, bg_cls_weight, a.device)
     logp = torch.log_softmax(flat["pred_logits"], dim=-1)
     ce = -torch.gather(logp, 2, tgt_cls[..., None])[..., 0] \
         * class_weight[tgt_cls]

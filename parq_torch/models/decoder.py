@@ -27,9 +27,10 @@ gradient-independent given their input points:
      (the "precomputed" autograd entries); its backward runs B3 once and B4
      once over every folded row, and the self-attention and the heads'
      GroupNorm statistics run per group.
-Dropout draws come from one generator per (iteration, salt), seeded from
-the step's generator, so group g of phase 2 draws exactly what iteration g
-drew in phase 1 (the contract of `_grouped_keep`, :77-87). The sequential
+Dropout masks are a counter hash of one seed per (iteration, salt), drawn
+on the step's generator and kept on the device (`DropoutDraws`), so group
+g of phase 2 draws exactly what iteration g drew in phase 1 (the contract
+of `_grouped_keep`, :77-87). The sequential
 training path (``batched_grad=False``) is the fold's yardstick in the tests.
 
 Parallel runs (`set_parallel`):
@@ -67,6 +68,7 @@ adds ``iterations.{i}.{position_encoder, layer, mlp_heads}`` for i ≥ 1.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -81,6 +83,7 @@ from ..kernels.cross_attention import (
     flash_cross_attention_kv_fused_fwd_lse,
     flash_cross_attention_kv_fused_precomputed,
     flash_cross_attention_kv_fused_train)
+from ..kernels.dropout import draw_keep
 from ..kernels.pixel_align import (pixel_aligned_features_precomputed,
                                    pixel_aligned_features_train)
 from ..ops.posemb import pos2posemb3d
@@ -106,42 +109,49 @@ _QUERY_AXIS = {"center_im": 2, "center_valid": 2}
 
 
 class DropoutDraws:
-    """The dropout of one training forward: one seed per (iteration,
-    salt), drawn from the step's `generator`. Each draw seeds a fresh
-    generator on `device`, so a mask depends only on (iteration, salt,
-    shape) and never on the order of the draws. A data-parallel rank holds
-    rows b_offset .. of a `global_batch`: each mask is drawn for the global
-    batch and the rank keeps its rows (the seeds are the same on every
-    rank), so the ranks draw what one process over the global batch
-    draws."""
+    """The dropout of one training forward: one int64 seed per (iteration,
+    salt), drawn by `torch.randint` on the step's `generator` and kept on
+    the device, so no value goes back to the host. Each mask is a counter
+    hash of its (iteration, salt) seed, its GLOBAL batch row and its column
+    (the keep-mask kernel, kernels/dropout.py, with the flash kernels' v1
+    hash), so a mask depends only on (iteration, salt, shape) and never on
+    the order of the draws, and a data-parallel rank holding rows
+    b_offset .. of the global batch draws those rows of the one-process
+    mask (the seeds are the same on every rank)."""
 
     def __init__(self, rate: float, num_layers: int, device,
                  generator: Optional[torch.Generator] = None,
-                 b_offset: int = 0, global_batch: Optional[int] = None):
+                 b_offset: int = 0):
         self.rate = float(rate)
         self.device = torch.device(device)
-        self.b_offset, self.global_batch = b_offset, global_batch
+        self.b_offset = b_offset
         gdev = generator.device if generator is not None else "cpu"
         self.seeds = torch.randint(0, 2 ** 62, (num_layers, N_SALTS),
-                                   generator=generator, device=gdev).tolist()
+                                   generator=generator,
+                                   device=gdev).to(self.device)
+
+    def group_seeds(self, groups: Sequence[int], salt: int) -> torch.Tensor:
+        """(G,) int64 seeds of `salt` for the iterations in `groups`: a
+        strided view of the seed table where they are consecutive."""
+        g = list(groups)
+        if g == list(range(g[0], g[0] + len(g))):
+            return self.seeds[g[0]:g[0] + len(g), salt]
+        return torch.stack([self.seeds[l, salt] for l in g])
 
     def keep(self, groups: Sequence[int], salt: int, per_shape) -> torch.Tensor:
         """Keep masks of `per_shape` (leading axis: the rank's rows) for
         each iteration in `groups`, concatenated along axis 1."""
-        B = per_shape[0]
-        shape = (self.global_batch or B,) + tuple(per_shape[1:])
-        masks = []
-        for l in groups:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.seeds[l][salt])
-            masks.append(torch.rand(shape, generator=gen,
-                                    device=self.device)
-                         [self.b_offset:self.b_offset + B] < 1.0 - self.rate)
-        return torch.cat(masks, dim=1) if len(masks) > 1 else masks[0]
+        B, inner = per_shape[0], tuple(per_shape[1:])
+        G = len(groups)
+        keep = draw_keep(self.group_seeds(groups, salt), B, self.b_offset,
+                         math.prod(inner), self.rate)       # (B, G, M)
+        return keep.view((B, G * inner[0]) + inner[1:])
 
-    def flash_seeds(self, groups: Sequence[int]):
-        """One int32 seed per iteration for the flash kernels' hash."""
-        return [self.seeds[l][SALT_CA_W] % (2 ** 31 - 1) for l in groups]
+    def flash_seeds(self, groups: Sequence[int]) -> torch.Tensor:
+        """(G,) int32 seeds, one per iteration, for the flash kernels'
+        hash: the salt's int64 seed modulo 2³¹ − 1, on the device."""
+        return (self.group_seeds(groups, SALT_CA_W)
+                % (2 ** 31 - 1)).to(torch.int32)
 
 
 def apply_drop(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float):
@@ -469,11 +479,12 @@ class PARQDecoder(nn.Module):
     ``nn.remat(DecoderIteration)`` (decoder.py:763): its activations are
     dropped after the forward and recomputed in the backward, which
     launches B1 and B2-train again. The recompute draws the same dropout:
-    every mask comes from a fresh generator seeded by (iteration, salt)
-    (`DropoutDraws`), and the flash kernels' keep bits are a counter hash
-    of (seed, b·H + h, row, kv column) with the seed fixed by (iteration,
-    salt) too, so no state is consumed that a second draw would see
-    changed.
+    every mask is a counter hash of its (iteration, salt) seed, row and
+    column (`DropoutDraws`), and the flash kernels' keep bits are a counter
+    hash of (seed, b·H + h, row, kv column) with the seed fixed by
+    (iteration, salt) too, so no state is consumed that a second draw would
+    see changed; the checkpoint keeps no RNG state
+    (``preserve_rng_state=False``), which a captured graph could not read.
 
     The two-phase fold runs only with shared weights, no remat and L > 1
     (decoder.py:714-722); otherwise training is sequential: B1 and
@@ -627,15 +638,15 @@ class PARQDecoder(nn.Module):
         drops = None
         if not deterministic and self.dropout_rate > 0.0:
             drops = DropoutDraws(self.dropout_rate, L, memory_hw.device,
-                                 generator, b_offset=self.data_index * B,
-                                 global_batch=self.data * B)
+                                 generator, b_offset=self.data_index * B)
         if not self.folds(deterministic):
             remat = self.remat and torch.is_grad_enabled()
             outs = []
             for l in range(L):
                 if remat:
                     ref, o = checkpoint(self._iteration, ref, *inputs, drops,
-                                        (l,), use_reentrant=False)
+                                        (l,), use_reentrant=False,
+                                        preserve_rng_state=False)
                 else:
                     ref, o = self._iteration(ref, *inputs, drops, (l,))
                 outs.append(o)

@@ -85,7 +85,12 @@ class PARQModel(nn.Module):
         JAX package sows as "feature_map" for image logging)."""
         dev = batch["rgb_img"].device
         bf16 = self.cfg.compute_dtype == "bfloat16"
-        ctx = (torch.autocast(dev.type, dtype=torch.bfloat16) if bf16
+        # autocast's weight cache is off while a CUDA graph is captured
+        # (parq_torch/graphs.py): the graph must hold every cast it reads
+        capturing = dev.type == "cuda" and \
+            torch.cuda.is_current_stream_capturing()
+        ctx = (torch.autocast(dev.type, dtype=torch.bfloat16,
+                              cache_enabled=not capturing) if bf16
                else contextlib.nullcontext())
         with ctx:
             camera = Camera(batch["camera"]).scale(self.cfg.camera_scale)

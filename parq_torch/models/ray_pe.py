@@ -32,6 +32,14 @@ class AddRayPE(nn.Module):
         self.min_depth, self.max_depth = min_depth, max_depth
         self.feat_size = tuple(feat_size)
         self.encoder = MLP2(3 * num_samples, dim_out, dim_out)
+        # the scene box's lower corner and span, on the model's device (a
+        # tensor built from host floats in the forward would be a blocking
+        # upload every call)
+        s = self.ray_points_scale
+        self.register_buffer("box_lo", torch.tensor([s[0], s[2], s[4]]),
+                             persistent=False)
+        self.register_buffer("box_span", torch.tensor(
+            [s[1] - s[0], s[3] - s[2], s[5] - s[4]]), persistent=False)
 
     def forward(self, camera: Camera, T_camera_pseudoCam: Pose,
                 T_world_pseudoCam: Pose, T_world_local: Pose
@@ -45,10 +53,7 @@ class AddRayPE(nn.Module):
         d = depth_planes(self.num_samples, self.min_depth, self.max_depth,
                          dev)
         pts = rdir[..., None, :] * d[:, None] + t[:, :, None, None, :]
-        s = self.ray_points_scale
-        lo = torch.tensor([s[0], s[2], s[4]], device=dev)
-        span = torch.tensor([s[1] - s[0], s[3] - s[2], s[5] - s[4]],
-                            device=dev)
-        pts = inverse_sigmoid((pts - lo) / span)       # (B, T, HW, n, 3)
+        pts = inverse_sigmoid((pts - self.box_lo)
+                              / self.box_span)         # (B, T, HW, n, 3)
         B, T = pts.shape[:2]
         return self.encoder(pts.reshape(B, T, H, W, 3 * self.num_samples))

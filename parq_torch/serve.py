@@ -12,8 +12,10 @@ a state_dict in the reference layout; without one the weights are random
 from SEED and a warning says so. `--artifact` serves a program exported by
 `python -m parq_torch.export` with the engine's weights loaded into it;
 otherwise the live model serves. Both run the same custom ops for B1 and
-B2. It runs on CUDA and raises without a GPU unless TPU.PLATFORM (or env
-PARQ_PLATFORM) is "cpu".
+B2. On the card the forward (of the model or of the artifact) is captured
+once as a CUDA graph at the served batch size, by the engine's warm-up,
+and each request replays it (parq_torch/graphs.py). It runs on CUDA and
+raises without a GPU unless TPU.PLATFORM (or env PARQ_PLATFORM) is "cpu".
 
 Protocol (input shapes are fixed by the served batch — GET /spec):
 
@@ -48,6 +50,7 @@ from .config import ServeConfig
 from .data.synthetic import to_device
 from .evals.parse_pred import parse_pred
 from .export import example_batch, load_artifact, load_model
+from .graphs import Graphed
 from .models import BATCH_KEYS
 
 
@@ -69,10 +72,13 @@ class Engine:
         # the host
         self.model = load_model(cfg.model, seed, checkpoint,
                                 "cpu" if artifact else self.device)
-        self._call = self.model
+        call = self.model
         if artifact:
-            self._call = load_artifact(artifact)
-            self._call.load_state_dict(self.model.state_dict(), strict=True)
+            call = load_artifact(artifact)
+            call.load_state_dict(self.model.state_dict(), strict=True)
+        # captured once at the served batch size (requests are padded to
+        # it) and replayed per request: scripts/serve.py's jitted forward
+        self._call = Graphed(call)
         self.example = example_batch(cfg.model, batch_size, self.device)
         self.spec = {k: {"shape": list(v.shape), "dtype": "float32"}
                      for k, v in self.example.items()}

@@ -1,5 +1,7 @@
 """Device time of one call under torch.profiler: the sum of its kernels'
-device times (the device's busy time) beside the call's wall time.
+device times (the device's busy time) beside the call's wall time. The
+device spans of user annotations (`record_function` ranges such as
+`Optimizer.step`) are not kernels and are left out.
 
 Used by `python -m parq_torch.bench` (its `device_busy_ms`) and by
 chip_smoke.py's profiles.
@@ -32,9 +34,13 @@ def device_profile(run: Callable[[], object],
         run()
         torch.cuda.synchronize(device)
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    # a record_function range (Optimizer.step, zero_grad) shows on the
+    # device as the span of its kernels: counted, they would be counted
+    # twice (torch's own table leaves them out too)
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
                and e.self_device_time_total > 0]
     if not kernels:
         return None

@@ -85,7 +85,8 @@ def step_share(cs, torch):
     pa.sample_views_bwd_mem = wrapper
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
+               if e.device_type == DeviceType.CUDA   # kernels only
+               and not getattr(e, "is_user_annotation", False)
                and e.self_device_time_total > 0]
     dtype, share = seen[-1]
     print(f"train step 3: device busy {sum(k[1] for k in kernels):.2f} ms; "

@@ -128,7 +128,8 @@ def step_numbers(cs, torch):
             run()
             torch.cuda.synchronize()
         return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / 1e3
+                   if e.device_type == DeviceType.CUDA   # kernels only
+                   and not getattr(e, "is_user_annotation", False)) / 1e3
     steps = [busy(lambda: train_step(net, opt, batches[i % 2], gen))
              for i in range(3)]
     net.eval()

@@ -7,7 +7,9 @@ The model is the release configuration (ResNet50-FPN concat-1024, 3 views
 of 320x240, dim 1024, L=8, Q=256, dropout 0.1) on CUDA, and the tiny one
 on the CPU; random weights from --seed, AdamW at a constant lr of 1e-4
 with a global-norm clip of 1.0. One line per step with the loss and the
-gradient's norm. Without a GPU it raises unless --device cpu is given.
+gradient's norm. On the card the step is captured once as a CUDA graph
+(the first step runs eagerly and captures it) and replayed after that.
+Without a GPU it raises unless --device cpu is given.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from .. import resolve_device
 from ..config import ModelConfig
 from ..data.synthetic import make_batch, to_device
 from ..models import BATCH_KEYS, build_model
-from .train_step import make_optimizer, train_step
+from .train_step import make_graphed_train_step, make_optimizer
 
 TRAIN_KEYS = BATCH_KEYS + ("obbs_padded", "sym")
 
@@ -39,11 +41,11 @@ def synthetic_batches(cfg: ModelConfig, batch_size: int, device,
 def build(model: str = "release", dtype: str = "bfloat16", seed: int = 0,
           device=None):
     """(model in training mode, AdamW at lr 1e-4) at the named
-    configuration."""
+    configuration; the AdamW is capturable, as `main` captures its step."""
     base = ModelConfig() if model == "release" else ModelConfig.tiny()
     cfg = dataclasses.replace(base, compute_dtype=dtype)
     net = build_model(cfg, seed=seed, device=device).train()
-    return net, make_optimizer(net)
+    return net, make_optimizer(net, capturable=True)
 
 
 def main(argv=None):
@@ -61,11 +63,12 @@ def main(argv=None):
     net, opt = build(model_name, args.dtype, args.seed, dev)
     batches = synthetic_batches(net.cfg, args.batch, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    train_step = make_graphed_train_step(net, opt)
     print(f"train: {model_name} B={args.batch} {args.dtype} on {dev}",
           flush=True)
     for step in range(args.steps):
         t0 = time.perf_counter()
-        m = train_step(net, opt, batches[step % len(batches)], gen)
+        m = train_step(batches[step % len(batches)], gen)
         loss, norm = float(m["total_loss"]), float(m["grad_norm"])
         print(f"step {step}: loss {loss:.6f} grad_norm {norm:.6f} "
               f"valid_bs {float(m['valid_bs']):.0f} "

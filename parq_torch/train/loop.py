@@ -59,7 +59,8 @@ from ..utils import vis
 from . import debug_nans
 from .checkpoint import CheckpointManager, load_pretrained, restore_state
 from .schedule import lr_schedule_from_cfg
-from .train_step import LossConfig, eval_step, make_optimizer, train_step
+from .train_step import (LossConfig, make_graphed_eval_step,
+                         make_graphed_train_step, make_optimizer, set_lr)
 
 logger = logging.getLogger(__name__)
 
@@ -166,6 +167,10 @@ class Trainer:
         self.model = None
         self.optimizer = None
         self.lr_schedule: Optional[Callable[[int], float]] = None
+        self.train_step_fn = self.eval_step_fn = None
+        # validation's matcher draws: one generator, reseeded to 0 by every
+        # validation (a captured eval step is bound to its generator)
+        self._val_gen = torch.Generator(device=self.device)
         self.global_step = 0
         # 'simple' profiler: wall time per phase (TRAINER.PROFILER)
         self._prof = defaultdict(float)
@@ -282,7 +287,8 @@ class Trainer:
         self.model = replicated(build_model(self.model_cfg, seed=int(cfg.SEED),
                                             device=self.device))
         self.model.set_parallel(self.mesh, bool(cfg.TPU.SEQ_PARALLEL))
-        self.optimizer = make_optimizer(self.model, lr=self.lr_schedule(0))
+        self.optimizer = make_optimizer(self.model, lr=self.lr_schedule(0),
+                                        capturable=self._captures())
         if cfg.PRETRAINED_PATH:
             logger.info("warm start from %s", cfg.PRETRAINED_PATH)
             load_pretrained(self.model, cfg.PRETRAINED_PATH, strict=False)
@@ -290,6 +296,30 @@ class Trainer:
             logger.info("DEBUG_NANS: stopping at the first NaN (forward "
                         "hooks, autograd anomaly mode)")
             debug_nans.enable(self.model)
+        self._make_steps()
+
+    def _captures(self) -> bool:
+        """Whether the steps are captured as CUDA graphs (`_make_steps`).
+        Eager by rule: several ranks (gloo's collectives cannot be
+        captured; NCCL capture is ROADMAP §A4) and DEBUG_NANS (hooks and
+        anomaly mode run op by op, as jax_debug_nans does). An eager
+        Trainer keeps the plain AdamW (`make_optimizer`)."""
+        return (self.mesh.data * self.mesh.model == 1
+                and not self.cfg.TPU.DEBUG_NANS)
+
+    def _make_steps(self):
+        """The steps as the JAX Trainer jits them (loop.py:109-111): each
+        captured once per batch signature as a CUDA graph and replayed
+        (parq_torch/graphs.py), or eager by the rule of `_captures`.
+        Rebuilt after a restore: the optimizer's state tensors are new,
+        and the graphs must capture them."""
+        capture = self._captures()
+        self.train_step_fn = make_graphed_train_step(
+            self.model, self.optimizer, self.loss_cfg,
+            float(self.cfg.TRAINER.GRADIENT_CLIP_VAL),
+            self.mesh.data_group, self.mesh.model_group, capture)
+        self.eval_step_fn = make_graphed_eval_step(self.model, self.loss_cfg,
+                                                   capture)
 
     def restore_if_available(self, data_loader=None) -> bool:
         """Full resume from the latest checkpoint: weights, AdamW, step
@@ -297,6 +327,7 @@ class Trainer:
         if self.ckpt_mgr.latest_step() is None:
             return False
         extras = restore_state(self.ckpt_mgr, self.model, self.optimizer)
+        self._make_steps()
         self.global_step = int(extras["step"])
         if data_loader is not None and "data_state" in extras:
             data_loader.load_state_dict(extras["data_state"])
@@ -310,6 +341,7 @@ class Trainer:
         if best is None:
             return False
         restore_state(self.ckpt_mgr, self.model, self.optimizer, step=best)
+        self._make_steps()
         logger.info("restored best checkpoint (step %d) for final eval", best)
         return True
 
@@ -364,16 +396,12 @@ class Trainer:
                 # optax's schedule counts updates: with accumulation, one
                 # per k micro-batches
                 lr = self.lr_schedule(self.global_step // k)
-                for group in self.optimizer.param_groups:
-                    group["lr"] = lr
+                set_lr(self.optimizer, lr)
                 self.model.train()
                 with nan_ctx():
-                    metrics = train_step(
-                        self.model, self.optimizer, dev_batch, gen,
-                        self.loss_cfg, float(cfg.TRAINER.GRADIENT_CLIP_VAL),
-                        accumulate=k, micro_step=self.global_step % k,
-                        data_group=self.mesh.data_group,
-                        model_group=self.mesh.model_group)
+                    metrics = self.train_step_fn(
+                        dev_batch, gen, accumulate=k,
+                        micro_step=self.global_step % k)
                 t0 = self._tick("train_step", t0)
                 self.global_step += 1
                 if cfg.LOG_IMAGES and self.global_step % log_img_every == 0:
@@ -457,7 +485,7 @@ class Trainer:
         dec = cfg.MODEL.DECODER
         calc = F1Calculator(dec.CONF_THRESH, num_semcls=dec.NUM_SEMCLS)
         limit = val_batch_limit(limit_batches, len(loader))
-        gen = torch.Generator(device=self.device).manual_seed(0)
+        gen = self._val_gen.manual_seed(0)
         times = []
         total_loss, count = 0.0, 0
         # restart the loader: an early break leaves it mid-epoch, and every
@@ -502,8 +530,7 @@ class Trainer:
                 break
             tick = self._tick("val_data", tick)
             t0 = time.perf_counter()
-            losses, outputs = eval_step(self.model, dev_batch, gen,
-                                        self.loss_cfg)
+            losses, outputs = self.eval_step_fn(dev_batch, gen)
             last = {k: v[-1] for k, v in outputs.items()}
             dev_parsed = parse_pred_device(last, dev_batch["T_world_local"],
                                            tuple(dec.TRACK_SCALE), for_vis)

@@ -14,16 +14,27 @@ chain does:
   out of the optimizer, so it does not decay either: the JAX package hands
   every parameter to optax (train_step.py:43-47), and its frozen backbone
   still shrinks by lr·wd a step. The port diverges here on purpose.
-The matcher (kernel M1), the clip and the metrics stay on the device.
-What still synchronizes the host with the card in a step
-(chip_smoke.py's [train] phase counts them with sync debug mode "warn"):
-one read back, the dropout seeds the step's generator draws on the card
-(models/decoder.py:115-116, `.tolist()`); and blocking copies of small
-host values to the card, each of which waits for the stream: the rayPE
-bounds (models/ray_pe.py:49-50), each attention call's seed vector
-(kernels/cross_attention.py:160), the box corner signs
-(geometry/obb.py:74), the loss's symmetry angles and mask and its class
-weight (losses/set_loss.py:73, :78, :135).
+The matcher (kernel M1), the clip and the metrics stay on the device,
+and a step makes no host sync: nothing is read back and nothing is copied
+from the host. What keeps it so: the dropout seeds stay a device tensor
+and the keep masks are drawn from them on the card (models/decoder.py:
+DropoutDraws, kernels/dropout.py); the flash kernels take those seeds as
+a device vector (kernels/cross_attention.py:_seed_vector); the rayPE
+bounds are buffers (models/ray_pe.py), the box corner signs and the loss's
+symmetry tables are uploaded once per device (geometry/obb.py,
+losses/set_loss.py) and the class weight is built on the device; a
+captured step's AdamW is `capturable` with its lr a device tensor
+(`make_optimizer(..., capturable=True)`, `set_lr`). chip_smoke.py's
+`[graphs]` phase counts the syncs of one step
+(sync debug mode "warn", tools/syncs.py): 0, where there were 16.
+
+`make_graphed_train_step` and `make_graphed_eval_step` are the twins of
+the JAX package's `make_jitted_train_step` / `make_jitted_eval_step`
+(train_step.py:132-138): the step captured once per batch signature as a
+CUDA graph and replayed after that (parq_torch/graphs.py). Parameters,
+gradients and AdamW's state are updated in place by the replays, the
+port's form of DONATE_TRAIN_STATE. Several ranks run eagerly: gloo's
+collectives cannot be captured (`capture=False`, the Trainer's rule).
 
 Data parallelism (`data_group`: the ranks holding the other rows of the
 global batch): each rank's loss is weighted by its share of the matched
@@ -52,6 +63,7 @@ import torch
 import torch.distributed as dist
 
 from ..geometry import Obb3D, Pose
+from ..graphs import Graphed
 from ..losses import parse_targets, set_loss
 from ..parallel.seq_parallel import group_size
 from ..parallel.tensor_parallel import sharded_parameters, tensor_parallel
@@ -71,14 +83,39 @@ class LossConfig:
 
 
 def make_optimizer(model: torch.nn.Module, lr: float = 1e-4,
-                   weight_decay: float = 0.01) -> torch.optim.AdamW:
+                   weight_decay: float = 0.01,
+                   capturable: bool = False) -> torch.optim.AdamW:
     """AdamW with torch's defaults β = (0.9, 0.999), eps = 1e-8, which the
     reference relies on, and weight decay on every trainable parameter (a
-    frozen one is left out, so it neither moves nor decays)."""
-    return torch.optim.AdamW([p for p in model.parameters()
-                              if p.requires_grad], lr=lr,
-                             betas=(0.9, 0.999), eps=1e-8,
+    frozen one is left out, so it neither moves nor decays); the lr a
+    float. `capturable`, for a step that is captured as a CUDA graph
+    (`make_graphed_train_step`): on the card AdamW is then `capturable`
+    (its step counts on the device) with the lr a device tensor that
+    `set_lr` fills in place, so a replay reads both. An eager step keeps
+    the plain AdamW, which launches fewer kernels; the CPU always does."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    if capturable and params and params[0].device.type == "cuda":
+        return torch.optim.AdamW(
+            params, lr=torch.tensor(float(lr), device=params[0].device),
+            betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
+            capturable=True)
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=weight_decay)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The lr of every param group: written in place into a device tensor
+    (what a captured step reads), else set as a float. A capturable
+    optimizer whose lr a checkpoint restored as a float gets a device
+    tensor again (capture after that, not before)."""
+    for group in optimizer.param_groups:
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        elif group.get("capturable"):
+            group["lr"] = torch.tensor(float(lr),
+                                       device=group["params"][0].device)
+        else:
+            group["lr"] = lr
 
 
 def _data_weight(losses: Dict[str, torch.Tensor], data_group) -> torch.Tensor:
@@ -190,9 +227,10 @@ def train_step(model, optimizer: torch.optim.Optimizer,
     last clips the mean gradient and applies the one update (grad_norm is
     the mean gradient's, reported by the last call only). A trainable
     parameter the loss does not reach gets a zero gradient, so AdamW decays
-    it as optax does."""
+    it as optax does. The gradients are zeroed in place, so a captured
+    step's gradients keep their buffers."""
     if micro_step == 0:
-        optimizer.zero_grad(set_to_none=True)
+        optimizer.zero_grad(set_to_none=False)
     losses, _ = forward_and_loss(model, batch, generator, loss_cfg,
                                  deterministic=False, uniforms=uniforms)
     if group_size(data_group) > 1 and "valid_bs" in losses:
@@ -237,3 +275,63 @@ def eval_step(model, batch: Dict[str, torch.Tensor],
     outputs)."""
     return forward_and_loss(model, batch, generator, loss_cfg,
                             deterministic=True, uniforms=uniforms)
+
+
+class GraphedTrainStep(Graphed):
+    """`train_step` of one model and optimizer captured once per batch
+    signature (and accumulation micro-step) and replayed after that; the
+    generator is registered with each graph, so a replay draws what an
+    eager step from the same generator state draws. The gradients are
+    allocated before the first capture and zeroed in place, so every graph
+    and eager step shares them. On the card a captured step needs a
+    capturable optimizer (`make_optimizer(..., capturable=True)`).
+    `capture=False` runs `train_step` eagerly (several ranks: the
+    collectives cannot be captured)."""
+
+    def __init__(self, model, optimizer, loss_cfg: LossConfig = LossConfig(),
+                 max_norm: float = 1.0, data_group=None, model_group=None,
+                 capture: bool = True):
+        def step(batch, generator, accumulate, micro_step):
+            return train_step(model, optimizer, batch, generator, loss_cfg,
+                              max_norm, accumulate=accumulate,
+                              micro_step=micro_step, data_group=data_group,
+                              model_group=model_group)
+        super().__init__(step, capture)   # no reference back to self
+        self.optimizer = optimizer
+        if capture and any(p.is_cuda and not group.get("capturable")
+                           for group in optimizer.param_groups
+                           for p in group["params"]):
+            raise ValueError("a captured train step needs the optimizer "
+                             "of make_optimizer(..., capturable=True)")
+
+    def __call__(self, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator], accumulate: int = 1,
+                 micro_step: int = 0) -> Dict[str, torch.Tensor]:
+        if self.capture:
+            for group in self.optimizer.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+        return super().__call__(batch, generator, accumulate, micro_step)
+
+
+def make_graphed_train_step(model, optimizer,
+                            loss_cfg: LossConfig = LossConfig(),
+                            max_norm: float = 1.0, data_group=None,
+                            model_group=None,
+                            capture: bool = True) -> GraphedTrainStep:
+    """The twin of `make_jitted_train_step`: `step(batch, generator,
+    accumulate=1, micro_step=0)` → metrics, one CUDA graph per batch
+    signature on the card, `train_step` itself on the CPU."""
+    return GraphedTrainStep(model, optimizer, loss_cfg, max_norm, data_group,
+                            model_group, capture)
+
+
+def make_graphed_eval_step(model, loss_cfg: LossConfig = LossConfig(),
+                           capture: bool = True) -> Graphed:
+    """The twin of `make_jitted_eval_step`: `step(batch, generator)` →
+    (losses, outputs), one CUDA graph per batch signature on the card,
+    `eval_step` itself on the CPU."""
+    return Graphed(lambda batch, generator: eval_step(model, batch,
+                                                      generator, loss_cfg),
+                   capture)

@@ -753,3 +753,217 @@ def test_preprocess_scene_card_equals_cpu(gen, tmp_path):
         np.testing.assert_allclose(a["truncation_ratio_list"],
                                    b["truncation_ratio_list"], rtol=1e-12,
                                    atol=1e-12)
+
+
+# ------------------------------------------------ graphs (jax.jit's twin) --
+def _card_tiny(**kw):
+    """The tiny model at widths the kernels take (head dim 64)."""
+    from parq_torch.config import ModelConfig
+    return ModelConfig.tiny(fpn_channels=64, tokenizer_out_channels=256,
+                            dec_dim=256, num_queries=16, **kw)
+
+
+@pytest.mark.parametrize("rows,row0,G,M", [(8, 0, 1, 4 * 256 * 256),
+                                           (8, 0, 8, 256 * 768),
+                                           (3, 5, 2, 77), (2, 4, 3, 16)])
+def test_keep_mask_kernel_equals_plain(gen, rows, row0, G, M):
+    """The keep-mask kernel against `keep_mask` on the same seeds, bit for
+    bit: the vector path (M % 16 == 0) and the scalar one, a strided
+    column of the seed table, a rank's first global row."""
+    from parq_torch.kernels.dropout import draw_keep, draw_keep_plain
+    table = torch.randint(0, 2 ** 62, (G, 6), device="cuda", generator=gen)
+    seeds = table[:, 2]
+    got = draw_keep(seeds, rows, row0, M, 0.1)
+    assert got.shape == (rows, G, M) and got.dtype == torch.bool
+    assert torch.equal(got, draw_keep_plain(seeds, rows, row0, M, 0.1))
+
+
+def test_graphed_forward_replays_the_eager_forward(gen):
+    """A replay of the captured eval forward equals the eager forward bit
+    for bit, on a second batch too; the serving kernels' counts rise by L
+    a replay; nothing synchronizes."""
+    from parq_torch.data.synthetic import make_batch, to_device
+    from parq_torch.graphs import Graphed
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.models import BATCH_KEYS, build_model
+    from parq_torch.tools.syncs import count_syncs
+    cfg = _card_tiny(compute_dtype="bfloat16")
+    model = build_model(cfg, seed=0, device="cuda")
+    xs = [to_device(make_batch([i, i + 1], image_size=cfg.image_size),
+                    BATCH_KEYS, "cuda") for i in (0, 2)]
+    fwd = Graphed(model)
+    with torch.inference_mode():
+        fwd(xs[0])
+        reset_launch_counts()
+        n, _ = count_syncs(lambda: fwd(xs[1]))
+        assert n == 0 and len(fwd) == 1
+        counts = launch_counts()
+        assert counts["pixel_align_sample"] == cfg.dec_layers
+        assert counts["flash_cross_attention_fwd"] == cfg.dec_layers
+        for x in xs:
+            got, want = fwd(x), model(x)
+            for k, v in want.items():
+                assert torch.equal(got[k], v), k
+
+
+@pytest.mark.parametrize("path", [{}, {"remat": True},
+                                  {"share_weights": False}],
+                         ids=["fold", "remat", "unshared"])
+def test_graphed_train_step_replays_eager_steps(gen, path):
+    """f32, TF32 off, dropout 0.1, on the fold, under REMAT and with
+    unshared iterations: 2 replays against 2 eager steps, each
+    from the same weights, AdamW state (the eager model's, copied in place
+    into the captured one) and generator state: losses to 1e-5, every
+    clipped gradient within 5e-3·‖g‖ + 1e-6·‖G‖, every updated parameter
+    within 5e-3 of its update where Adam's step is well posed (|g| >
+    max(2·|Δg|, 1e-6)) and within 2·lr anywhere; a replay makes no sync
+    and counts the capture's launches."""
+    from parq_torch.data.synthetic import make_batch, to_device
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.models import build_model
+    from parq_torch.tools.syncs import count_syncs
+    from parq_torch.train.__main__ import TRAIN_KEYS
+    from parq_torch.train.train_step import (make_graphed_train_step,
+                                             make_optimizer, train_step)
+    cfg = _card_tiny(compute_dtype="float32", dropout_rate=0.1, **path)
+    batches = [to_device(make_batch([i, i + 1], image_size=cfg.image_size),
+                         TRAIN_KEYS, "cuda") for i in (0, 2)]
+    tf32 = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lr = 1e-3
+    folds = not path
+    try:
+        models = [build_model(cfg, seed=1, device="cuda").train()
+                  for _ in range(2)]
+        opts = [make_optimizer(m, lr=lr, capturable=True) for m in models]
+        gens = [torch.Generator(device="cuda") for _ in range(2)]
+        step = make_graphed_train_step(models[0], opts[0])
+        step(batches[0], gens[0].manual_seed(5))      # eager + capture
+        for i, b in enumerate(batches):
+            with torch.no_grad():
+                for pg, pe in zip(*(m.parameters() for m in models)):
+                    pg.copy_(pe)
+                    sg, se = opts[0].state[pg], opts[1].state.get(pe, {})
+                    for k, v in sg.items():
+                        v.copy_(se[k]) if k in se else v.zero_()
+            start = [p.detach().clone() for p in models[1].parameters()]
+            want = train_step(models[1], opts[1], b,
+                              gens[1].manual_seed(7 + i))
+            reset_launch_counts()
+            got = []
+            n, _ = count_syncs(lambda: got.append(
+                step(b, gens[0].manual_seed(7 + i))))
+            counts = launch_counts()
+            assert n == 0 and len(step) == 1
+            L = cfg.dec_layers
+            assert counts["flash_cross_attention_bwd"] == (1 if folds else L)
+            assert counts["dropout_keep_mask"] == (
+                5 * L + 5 if folds else 5 * L * (2 if cfg.remat else 1))
+            assert float(got[0]["total_loss"]) == pytest.approx(
+                float(want["total_loss"]), rel=1e-5)
+            pairs = list(zip(models[0].parameters(),
+                             models[1].parameters(), start))
+            total = sum(float(pe.grad.norm()) ** 2
+                        for _, pe, _ in pairs) ** 0.5
+            for pg, pe, s0 in pairs:
+                dg = (pg.grad - pe.grad).abs()
+                assert float(dg.norm()) <= 5e-3 * float(pe.grad.norm()) \
+                    + 1e-6 * total
+                posed = pe.grad.abs() > torch.clamp(2 * dg, min=1e-6)
+                d = (pg - pe).detach().abs()
+                u = (pe - s0).detach()
+                assert float((d * posed).norm()) <= \
+                    5e-3 * float((u * posed).norm()) + 1e-9
+                assert float(d.max()) <= 2 * lr + 1e-6
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+
+
+def test_capturable_adamw_equals_plain(gen):
+    """make_optimizer(capturable=True) on the card: capturable, the lr a
+    device tensor that set_lr fills in place; one step equals the plain
+    AdamW of make_optimizer (the eager steps') to 1e-6 relative in the
+    parameters."""
+    from parq_torch.train.train_step import make_optimizer, set_lr
+    ps = [torch.randn(s, device="cuda", generator=gen) * 0.03
+          for s in ((256, 128), (128,))]
+    gs = [torch.randn(p.shape, device="cuda", generator=gen) * 1e-3
+          for p in ps]
+    mods = []
+    for _ in range(2):
+        m = torch.nn.ParameterList([torch.nn.Parameter(p.clone())
+                                    for p in ps])
+        for p, g in zip(m, gs):
+            p.grad = g.clone()
+        mods.append(m)
+    cap = make_optimizer(mods[0], lr=1.0, capturable=True)
+    lr = cap.param_groups[0]["lr"]
+    assert torch.is_tensor(lr) and cap.defaults["capturable"]
+    set_lr(cap, 1e-4)
+    assert cap.param_groups[0]["lr"] is lr
+    plain = make_optimizer(mods[1], lr=1e-4)
+    assert not plain.defaults["capturable"]
+    assert not torch.is_tensor(plain.param_groups[0]["lr"])
+    cap.step()
+    plain.step()
+    for a, b in zip(mods[0], mods[1]):
+        assert float((a - b).norm() / b.norm()) <= 1e-6
+
+
+def test_graphed_train_step_refuses_a_plain_optimizer(gen):
+    """A captured train step on the card needs make_optimizer(...,
+    capturable=True); an eager one (capture=False) takes the plain AdamW."""
+    from parq_torch.models import build_model
+    from parq_torch.train.train_step import (make_graphed_train_step,
+                                             make_optimizer)
+    model = build_model(_card_tiny(), seed=0, device="cuda").train()
+    with pytest.raises(ValueError, match="capturable"):
+        make_graphed_train_step(model, make_optimizer(model))
+    make_graphed_train_step(model, make_optimizer(model), capture=False)
+
+
+def test_graphed_call_keys_each_generator_object(gen):
+    """A graph is keyed by the generator object and holds it: a second
+    generator with the same seed (a new object) captures its own graph and
+    draws what an eager call from that seed draws, and so does every
+    later call through either."""
+    from parq_torch.graphs import Graphed
+
+    def draw(x, g):
+        return x + torch.rand(x.shape, device=x.device, generator=g)
+    fn = Graphed(draw)
+    x = torch.zeros(1000, device="cuda")
+
+    def eager(seed, n):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return [draw(x, g) for _ in range(n)]
+    want = eager(3, 3)
+    for _ in range(2):        # a fresh generator each time, same seed
+        g = torch.Generator(device="cuda").manual_seed(3)
+        got = [fn(x, g) for _ in range(3)]
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        del g
+    assert len(fn) == 2
+    assert all(any(isinstance(k, torch.Generator) for k in key[1])
+               for key in fn._captures)
+
+
+def test_device_profile_counts_kernels_not_annotations(gen):
+    """A record_function range shows on the device as the span of its
+    kernels; the busy time counts the kernels once, not the span again."""
+    from parq_torch.tools.profiling import device_profile
+    x = torch.randn(1 << 22, device="cuda", generator=gen)
+
+    def run():
+        with torch.profiler.record_function("a_span"):
+            for _ in range(4):
+                x.mul_(1.0)
+    prof = device_profile(run)
+    names = [k[0] for k in prof["kernels"]]
+    assert "a_span" not in names and names
+    assert prof["busy_ms"] == pytest.approx(sum(k[1] for k in
+                                                prof["kernels"]))

@@ -160,14 +160,14 @@ def test_release_rehearsal(size, tmp_path, monkeypatch):
     load_pretrained(trainer.model, cfg.CHECKPOINT_PATH, strict=True)
 
     captured = []
-    orig_step = loop.eval_step
+    orig_step = trainer.eval_step_fn
 
     def capture_step(*a, **k):
         losses, outputs = orig_step(*a, **k)
         captured.append({k: v.numpy().copy() for k, v in outputs.items()})
         return losses, outputs
 
-    monkeypatch.setattr(loop, "eval_step", capture_step)
+    monkeypatch.setattr(trainer, "eval_step_fn", capture_step)
     metrics = trainer.validate(loader,
                                limit_batches=cfg.TRAINER.LIMIT_VAL_BATCHES)
     assert len(captured) == 2
