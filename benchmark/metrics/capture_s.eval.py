@@ -1,0 +1,12 @@
+"""graphs: the seconds of the program's `graphs.warmup` and
+`graphs.capture` spans over the whole run, set-up included (the eager
+first call of each graph key and its CUDA graph capture), less the spans
+inside them, which are not the graph layer's: a kernel library's build
+and load (`kernels.load`), which a checkout's first run does inside the
+warm-up, and the import of torch._dynamo that the custom ops' first call
+brings (`kernels.dynamo_import`)."""
+from benchmark.recorder import total_s
+
+
+def read(cell, run):
+    return total_s(run, "graphs.warmup", "graphs.capture", key="self_s")

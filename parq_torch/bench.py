@@ -8,10 +8,11 @@ Prints ONE JSON line with bench.py's keys, `metric`, `value` (frames/s)
 and `unit`, plus `vs_baseline` (eval) and `dropout_override` (when
 --dropout is given), and beside them: `device` (nvidia-smi's name and
 power limit), `host_cpu` (the model name in /proc/cpuinfo), `wall_ms` (per
-iteration), `device_busy_ms` (the sum of the kernels' device times of one
-iteration profiled with torch.profiler after the timed window; null when
-the profiler saw none) and `launches_per_iter` (each hand-written kernel's
-launches in the timed window over the iterations). The forward and the
+iteration), `device_busy_ms` (the union of the kernels' device intervals
+in one iteration profiled with torch.profiler after the timed window;
+null when the profiler saw none) and `launches_per_iter` (each
+hand-written kernel's launches in the timed window over the
+iterations). The forward and the
 step are captured once as CUDA graphs and replayed (parq_torch/graphs.py,
 the counterpart of bench.py's `jax.jit`), so the host launches one graph
 an iteration; the rate is still a wall rate: read it with device_busy_ms

@@ -2,14 +2,24 @@
 (port of parq_tpu/evals/parse_pred.py). Rotation decode, corners and the
 track-scale filter run on the outputs' device (`parse_pred_device`); the
 host half (`finish_parse_pred`) copies them to numpy and runs the greedy
-NMS, so an eval loop can launch the next batch before it."""
+NMS, so an eval loop can launch the next batch before it.
+
+The recorder (`telemetry`) sees both halves: the spans
+``parse_pred.device``, ``parse_pred.to_host`` and ``parse_pred.nms``; the
+device mark ``decode_end`` at the end of the device half; the anchor of
+the marks right after the copies to the host (the stream has drained
+there); the counters ``parse_pred.d2h_copies`` (the copies from a device
+to the host), ``parse_pred.nms_boxes`` (the foreground boxes NMS is given)
+and ``parse_pred.kept`` (the detections returned)."""
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..geometry import Obb3D, Pose, rotation_matrix_from_ortho6d
 from .nms import run_nms
 
@@ -22,6 +32,14 @@ def parse_pred_device(last_out: Dict[str, torch.Tensor],
     (B, K, 19), corners_local / corners_world (B, K, 8, 3), scores, labels,
     valid (inside the track scale's x and z bounds; everything when
     `for_vis`), sem_cls_prob."""
+    with telemetry.span("parse_pred.device"):
+        out = _parse_pred_device(last_out, T_world_local, track_scale,
+                                 for_vis)
+        telemetry.mark("decode_end")
+    return out
+
+
+def _parse_pred_device(last_out, T_world_local, track_scale, for_vis):
     size = last_out["size_unnormalized"].float()
     center = last_out["center_unnormalized"].float()
     probs = last_out["sem_cls_prob"].float()
@@ -56,20 +74,37 @@ def finish_parse_pred(dev: Dict[str, torch.Tensor], num_semcls: int,
     """Host half: the device arrays to numpy, then the greedy NMS in the
     local frame on the reference's thresholds: 0.1 class-agnostic for
     eval, 0.2 same-class for vis. ``pred_mask`` = kept and valid."""
-    host = {k: v.cpu().numpy() for k, v in dev.items()}
-    if enable_nms:
-        if for_vis:
-            keep = run_nms(host["corners_local"], host["labels"],
-                           host["scores"], num_semcls, 0.2,
-                           "nms_3d_faster_samecls")
-        else:
-            keep = run_nms(host["corners_local"], host["labels"],
-                           host["scores"], num_semcls, 0.1, "nms_3d_faster")
-        host["pred_mask"] = keep & host["valid"]
-    else:
-        host["pred_mask"] = host["valid"]
+    telemetry.resolve()        # the host is about to wait on the copies
+    with telemetry.span("parse_pred.to_host") as phase:
+        host = {k: v.cpu().numpy() for k, v in dev.items()}
+        telemetry.anchor()
+        if enable_nms:
+            phase.next("parse_pred.nms")
+            if for_vis:
+                keep = run_nms(host["corners_local"], host["labels"],
+                               host["scores"], num_semcls, 0.2,
+                               "nms_3d_faster_samecls")
+            else:
+                keep = run_nms(host["corners_local"], host["labels"],
+                               host["scores"], num_semcls, 0.1,
+                               "nms_3d_faster")
+    copies = len(host) if next(iter(dev.values())).is_cuda else 0
+    host["pred_mask"] = keep & host["valid"] if enable_nms else host["valid"]
+    telemetry.count_later(functools.partial(
+        _parse_counts, copies, host["labels"], host["pred_mask"], num_semcls,
+        enable_nms))
     host["pred_corners_world"] = host["corners_world"]
     return host
+
+
+def _parse_counts(copies, labels, pred_mask, num_semcls, nms
+                  ) -> Dict[str, int]:
+    counts = {"parse_pred.kept": int(pred_mask.sum())}
+    if copies:
+        counts["parse_pred.d2h_copies"] = copies
+    if nms:
+        counts["parse_pred.nms_boxes"] = int((labels != num_semcls).sum())
+    return counts
 
 
 def parse_pred(last_out: Dict[str, torch.Tensor],

@@ -34,19 +34,29 @@ There is no fallback: a capture or a replay that fails raises.
 
 Launch counts (`kernels.launch_counts`) are Python counters that a replay
 does not run. The capture's launches are recorded and taken back out of
-the counters (the capture ran nothing), and every replay adds them again,
-so the counters read as they would for eager calls.
+the counters (the capture ran nothing); each graph keeps them in a
+`kernels.GraphLaunches` and counts its replays, so `launch_counts` reads as
+it would for eager calls.
+
+The recorder (`telemetry`) sees every call: a call opens a batch; the
+first call of a key is the spans ``graphs.warmup`` and ``graphs.capture``,
+a replay the spans ``graphs.copy_in``, ``graphs.replay`` and
+``graphs.clone_out`` and the device marks ``replay_start`` (after the
+copy-in) and ``replay_end``. The spans' counts are the captures and the
+replays.
 
 Tensors on the CPU run `fn` eagerly: the caller asked for the CPU.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
 
-from .kernels import KERNELS
+from . import telemetry
+from .kernels import KERNELS, GraphLaunches
 
 
 def _flatten(tree, leaves: List[Any]):
@@ -92,17 +102,24 @@ class _Capture:
 
     def __init__(self, graph, inputs, outputs, launches):
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
-        self.launches = launches
+        self.launches = GraphLaunches(launches)
+        weakref.finalize(self, self.launches.fold)
 
     def replay(self, tensors):
-        moved = [(s, t) for s, t in zip(self.inputs, tensors) if s is not t]
-        if moved:
-            dst, src = zip(*moved)
-            torch._foreach_copy_(list(dst), list(src), non_blocking=True)
-        self.graph.replay()
-        for name, n in self.launches.items():
-            KERNELS[name].launches += n
-        return _clone(self.outputs)
+        with telemetry.span("graphs.copy_in") as phase:
+            moved = [(s, t) for s, t in zip(self.inputs, tensors)
+                     if s is not t]
+            if moved:
+                dst, src = zip(*moved)
+                torch._foreach_copy_(list(dst), list(src), non_blocking=True)
+            phase.next("graphs.replay")
+            telemetry.mark("replay_start")
+            self.graph.replay()
+            telemetry.mark("replay_end")
+            phase.next("graphs.clone_out")
+            out = _clone(self.outputs)
+        self.launches.replays += 1
+        return out
 
 
 class Graphed:
@@ -123,6 +140,7 @@ class Graphed:
         return len(self._captures)
 
     def __call__(self, *args):
+        telemetry.next_batch()
         leaves: List[Any] = []
         spec = _flatten(args, leaves)
         tensors = [x for x in leaves if torch.is_tensor(x)]
@@ -146,7 +164,7 @@ class Graphed:
         dev = next(x.device for x in static if torch.is_tensor(x))
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
+        with telemetry.span("graphs.warmup"), torch.cuda.stream(stream):
             out = self.fn(*args)                 # the warm-up: this call
         torch.cuda.current_stream(dev).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
@@ -154,7 +172,8 @@ class Graphed:
             if isinstance(g, torch.Generator):
                 graph.register_generator_state(g)
         before = {name: fn.launches for name, fn in KERNELS.items()}
-        with torch.cuda.graph(graph, stream=stream):
+        with telemetry.span("graphs.capture"), \
+                torch.cuda.graph(graph, stream=stream):
             outputs = self.fn(*args)
         launches = {}
         for name, fn in KERNELS.items():

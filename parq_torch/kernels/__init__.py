@@ -45,8 +45,10 @@ B2 run through the custom ops ``parq::sample_views`` and
 them, and counts them, as the live model does.
 `SERVE_KERNELS` are the ones a forward for serving launches; the training
 step launches all but the eval form of B2. A CUDA graph's replay runs no
-Python, so the graph layer (``parq_torch/graphs.py``) adds to these counts
-on every replay the launches its capture recorded.
+Python: the graph layer (``parq_torch/graphs.py``) keeps, for each
+captured graph, the launches of one replay (`GraphLaunches`) and counts its
+replays, and `launch_counts` adds replays × launches to the wrappers'
+counters when asked.
 """
 from .cross_attention import (flash_bwd, flash_bwd_kv,
                               flash_cross_attention_kv_fused, flash_fwd_lse,
@@ -70,17 +72,43 @@ KERNELS = {
 SERVE_KERNELS = ("pixel_align_sample", "flash_cross_attention_fwd")
 
 
+_GRAPHS = set()            # the live graphs' GraphLaunches
+
+
+class GraphLaunches:
+    """The kernel launches that one replay of a captured graph makes, by
+    name, and the replays since the counts were last reset: a replay adds
+    one to `replays`, and `launch_counts` multiplies. `fold()` (when the
+    graph is dropped) moves its launches into the wrappers' counters."""
+
+    def __init__(self, launches: dict):
+        self.launches, self.replays = dict(launches), 0
+        _GRAPHS.add(self)
+
+    def fold(self) -> None:
+        for name, n in self.launches.items():
+            KERNELS[name].launches += n * self.replays
+        self.replays = 0
+        _GRAPHS.discard(self)
+
+
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    for g in list(_GRAPHS):
+        for name, n in g.launches.items():
+            counts[name] += n * g.replays
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for g in list(_GRAPHS):
+        g.replays = 0
 
 
-__all__ = ["KERNELS", "SERVE_KERNELS", "draw_keep", "flash_bwd",
-           "flash_bwd_kv",
+__all__ = ["GraphLaunches", "KERNELS", "SERVE_KERNELS", "draw_keep",
+           "flash_bwd", "flash_bwd_kv",
            "flash_cross_attention_kv_fused", "flash_fwd_lse",
            "flash_fwd_lse_kv",
            "launch_counts", "pixel_aligned_features_kernel",

@@ -16,6 +16,12 @@ edited source builds anew and an unchanged one is reused. The compiler's
 report (registers, shared memory, spills and `setmaxnreg` warnings per
 kernel: look for "spill" and "setmaxnreg ignored") is kept beside each
 library as ``<lib>-<hash>.log``.
+
+The recorder (`telemetry`) times each library's first `load` (its build,
+where one is needed, and the dlopen) as the span ``kernels.load``, counts
+the libraries nvcc built under ``kernels.builds``, and times the import
+that the custom ops' first call brings (`import_dynamo`) as the span
+``kernels.dynamo_import``.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from .. import telemetry
 
 LIBRARIES = {
     "pixel_align": ("pixel_align",),
@@ -108,6 +116,7 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
             ok = link.returncode == 0
             if ok:   # atomic: a concurrent loader sees all or none
                 os.replace(tmp, out)
+                telemetry.count("kernels.builds")
         for obj in objs:
             if os.path.exists(obj):
                 os.remove(obj)
@@ -120,11 +129,29 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
+_dynamo_imported = False
+
+
+def import_dynamo() -> None:
+    """Import torch._dynamo once, as the span ``kernels.dynamo_import``.
+    PyTorch runs a custom op's dispatch under `torch._disable_dynamo`,
+    which imports torch._dynamo (and with it sympy and FSDP) at the first
+    call of any custom op: seconds of Python. The callers of the port's
+    custom ops call this first, so that the import is a span of its own
+    and not a part of the span that made the first call."""
+    global _dynamo_imported
+    if not _dynamo_imported:
+        with telemetry.span("kernels.dynamo_import"):
+            import torch._dynamo  # noqa: F401
+        _dynamo_imported = True
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `name`, built first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build_all([name])
-            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+            with telemetry.span("kernels.load"):
+                build_all([name])
+                lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib

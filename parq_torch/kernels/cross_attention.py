@@ -486,6 +486,7 @@ def flash_cross_attention_kv_fused(q: torch.Tensor, kv: torch.Tensor
     → o (B, H, Q, D) in q's dtype. CPU tensors take the plain version. It
     runs through the custom op ``parq::flash_kv_fused``, so `torch.export`
     keeps the launch in an exported program."""
+    _build.import_dynamo()
     return torch.ops.parq.flash_kv_fused(q, kv)
 
 

@@ -79,6 +79,7 @@ def sample_views(memory: torch.Tensor, uvs: torch.Tensor) -> torch.Tensor:
     plain version, cast the same way. It runs through the custom op
     ``parq::sample_views``, so `torch.export` keeps the launch in an
     exported program."""
+    _build.import_dynamo()
     return torch.ops.parq.sample_views(memory, uvs)
 
 

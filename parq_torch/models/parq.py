@@ -16,7 +16,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
-from .. import resolve_device
+from .. import resolve_device, telemetry
 from ..config import ModelConfig
 from ..geometry import Camera, Pose
 from .box_processor import load_mean_size_table
@@ -46,6 +46,7 @@ class PARQModel(nn.Module):
             mesh.model_group if seq_parallel else None, mesh.data_index,
             mesh.data)
 
+    @telemetry.spanned("models.init")
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
         self.cfg = cfg

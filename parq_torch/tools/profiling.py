@@ -1,7 +1,9 @@
-"""Device time of one call under torch.profiler: the sum of its kernels'
-device times (the device's busy time) beside the call's wall time. The
-device spans of user annotations (`record_function` ranges such as
-`Optimizer.step`) are not kernels and are left out.
+"""Device time of one call under torch.profiler: the union of its
+kernels' device intervals (the device's busy time: two kernels that
+overlap count once) beside the call's wall time, and each kernel's summed
+device time. The device spans of user annotations (`record_function`
+ranges such as `Optimizer.step`, and the recorder's spans) are not kernels
+and are left out.
 
 Used by `python -m parq_torch.bench` (its `device_busy_ms`) and by
 chip_smoke.py's profiles.
@@ -16,10 +18,10 @@ import torch
 
 def device_profile(run: Callable[[], object],
                    device="cuda") -> Optional[dict]:
-    """Profile one call of `run` on `device`: {"wall_ms", "busy_ms",
-    "kernels": [(name, device ms, count), ...] by device time}, or None
-    when the profiler saw no device time (a CPU device, or a tracer that
-    recorded nothing)."""
+    """Profile one call of `run` on `device`: {"wall_ms", "busy_ms" (the
+    union of the kernels' intervals), "kernels": [(name, device ms, count),
+    ...] by summed device time}, or None when the profiler saw no device
+    time (a CPU device, or a tracer that recorded nothing)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     device = torch.device(device)
@@ -45,5 +47,19 @@ def device_profile(run: Callable[[], object],
     if not kernels:
         return None
     return {"wall_ms": wall_ms,
-            "busy_ms": sum(ms for _, ms, _ in kernels),
+            "busy_ms": union_ms([
+                (e.time_range.start, e.time_range.end)
+                for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]),
             "kernels": sorted(kernels, key=lambda k: -k[1])}
+
+
+def union_ms(intervals) -> float:
+    """The length in ms of the union of (start, end) intervals in µs."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3

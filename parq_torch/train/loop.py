@@ -31,6 +31,12 @@ writes metrics and checkpoints. Validation runs on every rank over the
 whole validation set (the JAX Trainer's validation scores the whole batch
 on every device), so every rank reaches the same F1 and the same choice of
 checkpoint.
+
+TRAINER.PROFILER 'simple': the phases of `fit` and `validate` are spans
+of the recorder (`parq_torch.telemetry`), ``trainer.<phase>`` (data,
+train_step, log_images, log, validate, checkpoint, val_data, val_step,
+val_host), which also lie in a TPU.PROFILE_STEPS trace as ranges of their
+names; `profile_summary` tabulates them.
 """
 from __future__ import annotations
 
@@ -39,13 +45,13 @@ import json
 import logging
 import os
 import time
-from collections import defaultdict, deque
+from collections import deque
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, telemetry
 from ..config import ModelConfig, check_card_support, platform_device
 from ..data.transforms import pose12_compose, pose12_inverse
 from ..evals import (F1Calculator, finish_parse_pred, parse_pred,
@@ -100,6 +106,21 @@ def device_prefetch(iterable, device, depth: int = 1, state_fn=None):
             yield buf.popleft()
     while buf:
         yield buf.popleft()
+
+
+_DONE = object()
+
+
+def _timed(iterable, name: str):
+    """`iterable`'s items, each fetch (the last one too, which finds
+    none) a span `name` of the recorder."""
+    it = iter(iterable)
+    while True:
+        with telemetry.span(name):
+            item = next(it, _DONE)
+        if item is _DONE:
+            return
+        yield item
 
 
 def make_trainer_mesh(cfg):
@@ -172,9 +193,9 @@ class Trainer:
         # validation (a captured eval step is bound to its generator)
         self._val_gen = torch.Generator(device=self.device)
         self.global_step = 0
-        # 'simple' profiler: wall time per phase (TRAINER.PROFILER)
-        self._prof = defaultdict(float)
-        self._prof_n = defaultdict(int)
+        # 'simple' profiler (TRAINER.PROFILER): the recorder's trainer.*
+        # spans, counted from here
+        self._phases_at_start = telemetry.spans("trainer.")
 
     # -- logging ---------------------------------------------------------
     def log_scalars(self, metrics: Dict, step: int, stage: str):
@@ -264,18 +285,17 @@ class Trainer:
         vis.write_png(path, vis.to_uint8(self._render_boxes(batch, host)))
         return path
 
-    def _tick(self, phase: str, t0: float) -> float:
-        now = time.perf_counter()
-        self._prof[phase] += now - t0
-        self._prof_n[phase] += 1
-        return now
-
     def profile_summary(self) -> str:
+        """Wall time per phase since the Trainer was made: the recorder's
+        ``trainer.<phase>`` spans, total seconds, calls, mean ms."""
         lines = ["phase            total_s    calls    mean_ms"]
-        for k in sorted(self._prof):
-            n = max(self._prof_n[k], 1)
-            lines.append(f"{k:<16} {self._prof[k]:>8.2f} {n:>8d} "
-                         f"{self._prof[k] / n * 1e3:>9.2f}")
+        start = self._phases_at_start
+        for name, a in sorted(telemetry.spans("trainer.").items()):
+            b = start.get(name, {"count": 0, "total_s": 0.0})
+            n, total = a["count"] - b["count"], a["total_s"] - b["total_s"]
+            if n > 0:
+                lines.append(f"{name[len('trainer.'):]:<16} {total:>8.2f} "
+                             f"{n:>8d} {total / n * 1e3:>9.2f}")
         return "\n".join(lines)
 
     # -- setup -----------------------------------------------------------
@@ -373,7 +393,6 @@ class Trainer:
         log_img_every = max(int(cfg.LOG_IMAGES_FREQUENCY), 1)
         overfit_cache = []
         while train_loader.epoch < cfg.TRAINER.MAX_EPOCHS:
-            t0 = time.perf_counter()
             if overfit_n and len(overfit_cache) >= overfit_n:
                 epoch_iter = list(overfit_cache)
                 train_loader.epoch += 1
@@ -385,35 +404,35 @@ class Trainer:
                 int(cfg.TRAINER.CHECK_VAL_EVERY_N_EPOCH), 1) == 0
             state_fn = (train_loader.state_dict
                         if epoch_iter is train_loader else None)
-            for batch, dev_batch, data_state in device_prefetch(
-                    epoch_iter, self.device, state_fn=state_fn):
+            for batch, dev_batch, data_state in _timed(device_prefetch(
+                    epoch_iter, self.device, state_fn=state_fn),
+                    "trainer.data"):
                 if overfit_n and len(overfit_cache) < overfit_n:
                     overfit_cache.append(batch)
                 n_done += 1
                 if n_done > limit_n > 0:
                     break
-                t0 = self._tick("data", t0)
-                # optax's schedule counts updates: with accumulation, one
-                # per k micro-batches
-                lr = self.lr_schedule(self.global_step // k)
-                set_lr(self.optimizer, lr)
-                self.model.train()
-                with nan_ctx():
-                    metrics = self.train_step_fn(
-                        dev_batch, gen, accumulate=k,
-                        micro_step=self.global_step % k)
-                t0 = self._tick("train_step", t0)
+                with telemetry.span("trainer.train_step"):
+                    # optax's schedule counts updates: with accumulation,
+                    # one per k micro-batches
+                    lr = self.lr_schedule(self.global_step // k)
+                    set_lr(self.optimizer, lr)
+                    self.model.train()
+                    with nan_ctx():
+                        metrics = self.train_step_fn(
+                            dev_batch, gen, accumulate=k,
+                            micro_step=self.global_step % k)
                 self.global_step += 1
                 if cfg.LOG_IMAGES and self.global_step % log_img_every == 0:
                     # every rank runs the forward (its collectives), rank 0
                     # writes
-                    with torch.no_grad():
+                    with telemetry.span("trainer.log_images"), \
+                            torch.no_grad():
                         outputs, feat = self.model(
                             dev_batch, deterministic=True,
                             return_feature_map=True)
-                    if is_main_process():
-                        self.log_images(batch, outputs, "train", feat)
-                    t0 = self._tick("log_images", t0)
+                        if is_main_process():
+                            self.log_images(batch, outputs, "train", feat)
                 if prof_steps and self.global_step == 2:
                     profiler = self._start_profiler()
                 if profiler is not None and \
@@ -421,25 +440,26 @@ class Trainer:
                     self._stop_profiler(profiler)
                     profiler = None
                 if self.global_step % cfg.TRAINER.LOG_EVERY_N_STEPS == 0:
-                    host = {name: float(v) for name, v in metrics.items()}
-                    host["lr"] = lr
-                    self.log_scalars(host, self.global_step, "train")
-                    logger.info("step %d loss %.4f", self.global_step,
-                                host["total_loss"])
-                    t0 = self._tick("log", t0)
+                    with telemetry.span("trainer.log"):
+                        host = {name: float(v)
+                                for name, v in metrics.items()}
+                        host["lr"] = lr
+                        self.log_scalars(host, self.global_step, "train")
+                        logger.info("step %d loss %.4f", self.global_step,
+                                    host["total_loss"])
                 if val_loader is not None and val_this_epoch and \
                         self.global_step % val_every == 0:
-                    val_metrics = self.validate(val_loader,
-                                                limit_batches=limit_val)
-                    self.log_scalars(val_metrics, self.global_step,
-                                     "val/metrics")
-                    t0 = self._tick("validate", t0)
-                    self.ckpt_mgr.save(
-                        self.global_step, self.model, self.optimizer,
-                        metrics=val_metrics,
-                        data_state=(data_state if data_state is not None
-                                    else train_loader.state_dict()))
-                    t0 = self._tick("checkpoint", t0)
+                    with telemetry.span("trainer.validate"):
+                        val_metrics = self.validate(val_loader,
+                                                    limit_batches=limit_val)
+                        self.log_scalars(val_metrics, self.global_step,
+                                         "val/metrics")
+                    with telemetry.span("trainer.checkpoint"):
+                        self.ckpt_mgr.save(
+                            self.global_step, self.model, self.optimizer,
+                            metrics=val_metrics,
+                            data_state=(data_state if data_state is not None
+                                        else train_loader.state_dict()))
             if val_loader is None:
                 self.ckpt_mgr.save(self.global_step, self.model,
                                    self.optimizer,
@@ -523,44 +543,46 @@ class Trainer:
         # the 'simple' profiler's split of a validation: waiting for the
         # loader (val_data), the step and device parse with the matcher's
         # sync (val_step), the host half and F1 association (val_host)
-        tick = time.perf_counter()
         pending = None
-        for i, (batch, dev_batch) in enumerate(stream):
+        for i, (batch, dev_batch) in enumerate(_timed(stream,
+                                                      "trainer.val_data")):
             if i >= limit:
                 break
-            tick = self._tick("val_data", tick)
             t0 = time.perf_counter()
-            losses, outputs = self.eval_step_fn(dev_batch, gen)
-            last = {k: v[-1] for k, v in outputs.items()}
-            dev_parsed = parse_pred_device(last, dev_batch["T_world_local"],
-                                           tuple(dec.TRACK_SCALE), for_vis)
-            targets = None
-            if "obbs_padded" in dev_batch:
-                targets = parse_targets(Obb3D(dev_batch["obbs_padded"]),
-                                        Pose(dev_batch["T_world_local"]),
-                                        dev_batch.get("sym"))
-            item = (batch, losses, dev_parsed, targets, outputs, i)
-            tick = self._tick("val_step", tick)
-            if timing:
-                host = host_finish(item)
-                dt = time.perf_counter() - t0
-                times.append(dt)
-                if is_main_process():
-                    print(f"{batch['scene_name'][0]}: inference time "
-                          f"{dt:.4f}s (running mean "
-                          f"{np.mean(times[1:] or times):.4f}s)", flush=True)
-                consume(item, host)
-            else:
-                if pending is not None:
-                    consume(pending, host_finish(pending))
-                pending = item
-            tick = self._tick("val_host", tick)
-        if pending is not None:
-            consume(pending, host_finish(pending))
-        self.model.train(was_training)
-        metrics = (calc.compute_metrics(verbose=verbose)
-                   if calc.preds or calc.gts else {})
-        self._tick("val_host", tick)
+            with telemetry.span("trainer.val_step"):
+                losses, outputs = self.eval_step_fn(dev_batch, gen)
+                last = {k: v[-1] for k, v in outputs.items()}
+                dev_parsed = parse_pred_device(
+                    last, dev_batch["T_world_local"], tuple(dec.TRACK_SCALE),
+                    for_vis)
+                targets = None
+                if "obbs_padded" in dev_batch:
+                    targets = parse_targets(
+                        Obb3D(dev_batch["obbs_padded"]),
+                        Pose(dev_batch["T_world_local"]),
+                        dev_batch.get("sym"))
+                item = (batch, losses, dev_parsed, targets, outputs, i)
+            with telemetry.span("trainer.val_host"):
+                if timing:
+                    host = host_finish(item)
+                    dt = time.perf_counter() - t0
+                    times.append(dt)
+                    if is_main_process():
+                        print(f"{batch['scene_name'][0]}: inference time "
+                              f"{dt:.4f}s (running mean "
+                              f"{np.mean(times[1:] or times):.4f}s)",
+                              flush=True)
+                    consume(item, host)
+                else:
+                    if pending is not None:
+                        consume(pending, host_finish(pending))
+                    pending = item
+        with telemetry.span("trainer.val_host"):
+            if pending is not None:
+                consume(pending, host_finish(pending))
+            self.model.train(was_training)
+            metrics = (calc.compute_metrics(verbose=verbose)
+                       if calc.preds or calc.gts else {})
         if count:
             metrics["total_loss"] = total_loss / count
         if timing and times:

@@ -967,3 +967,103 @@ def test_device_profile_counts_kernels_not_annotations(gen):
     assert "a_span" not in names and names
     assert prof["busy_ms"] == pytest.approx(sum(k[1] for k in
                                                 prof["kernels"]))
+
+
+def _parse_inputs(gen, K=64):
+    return {"s": torch.rand(1, K, 3, device="cuda", generator=gen),
+            "c": torch.randn(1, K, 3, device="cuda", generator=gen),
+            "p": torch.randn(1, K, 10, device="cuda", generator=gen),
+            "o": torch.randn(1, K, 6, device="cuda", generator=gen)}
+
+
+def _heads(x):
+    """A stand-in forward: a few hundred microseconds of kernels, then the
+    last iteration's outputs parse_pred takes."""
+    h = x["p"]
+    for _ in range(200):
+        h = torch.tanh(h * 1.001)
+    return {"size_unnormalized": x["s"] + 0.3,
+            "center_unnormalized": x["c"] * 0.8,
+            "sem_cls_prob": h.softmax(-1), "ortho6d": x["o"] * 1.0}
+
+
+def test_device_marks_lie_in_order_on_the_host_clock(gen):
+    """Graphed replays then parse_pred, as the eval loop runs them: the
+    marked batches (two consecutive in every MARK_EVERY) have all their
+    marks placed, in order (replay_start ≤ replay_end ≤ decode_end ≤ the
+    next replay_start), none before the host time that enqueued it, and
+    no decode_end after the end of its batch's copies to the host (each
+    within 20 µs); the other batches have none."""
+    from parq_torch import telemetry
+    from parq_torch.evals import parse_pred
+    from parq_torch.graphs import Graphed
+    telemetry.reset()
+    telemetry.enable(True)
+    f = Graphed(_heads)
+    Twl = torch.zeros(1, 12, device="cuda")
+    Twl[:, [0, 4, 8]] = 1.0
+    xs = [_parse_inputs(gen) for _ in range(3)]
+    for i in range(30):
+        parse_pred(f(xs[i % 3]), Twl, (-1.5, 1.5, -2.0, 1.0, 0.0, 2.0), 9)
+    torch.cuda.synchronize()
+    snap = telemetry.snapshot()
+    tol = 20_000
+    marks, to_host, replays = {}, {}, []
+    for e in snap["ring"]:
+        if e["kind"] == "mark":
+            assert e["at_ns"] is not None, e
+            assert e["at_ns"] >= e["enqueued_ns"] - tol, e
+            marks.setdefault(e["batch"], {})[e["name"]] = e["at_ns"]
+        elif e["name"] == "parse_pred.to_host":
+            to_host[e["batch"]] = e["end_ns"]
+        elif e["name"] == "graphs.replay":
+            replays.append(e["batch"])
+    assert snap["marks"]["placed_before_enqueue"] == 0
+    every = telemetry.MARK_EVERY
+    full = sorted(b for b, m in marks.items() if len(m) == 3)
+    assert len(replays) == 29              # the first call captures
+    assert full == [b for b in replays if b % every < 2] and len(full) >= 4
+    assert set(marks) <= set(full) | {replays[0] - 1}
+    for b in full:
+        m = marks[b]
+        assert m["replay_start"] <= m["replay_end"] <= m["decode_end"]
+        assert m["decode_end"] <= to_host[b] + tol
+        if b + 1 in marks:
+            assert m["decode_end"] <= marks[b + 1]["replay_start"]
+    assert snap["spans"]["graphs.replay"]["count"] == 29
+    assert snap["spans"]["graphs.capture"]["count"] == 1
+    assert snap["counters"]["parse_pred.d2h_copies"] == 30 * 7
+
+
+def test_nothing_is_recorded_while_a_stream_captures(gen):
+    """Spans, counters and marks inside a captured function are not
+    recorded (a mark would become a node of the graph); the replay runs
+    and records only the graph layer's own."""
+    from parq_torch import telemetry
+    from parq_torch.graphs import Graphed
+    telemetry.reset()
+    while telemetry.RECORDER.next_batch() % telemetry.MARK_EVERY != \
+            telemetry.MARK_EVERY - 1:
+        pass                  # the next two batches (the calls below) mark
+
+    def fn(x):
+        with telemetry.span("inside.span"):
+            telemetry.count("inside.count")
+            telemetry.mark("inside.mark")
+            return x * 2
+    f = Graphed(fn)
+    x = torch.randn(8, device="cuda", generator=gen)
+    f(x)                                  # the warm-up records, eagerly
+    warm = telemetry.snapshot()
+    assert warm["spans"]["inside.span"]["count"] == 1
+    assert warm["counters"]["inside.count"] == 1
+    assert warm["marks"]["made"] == 1
+    assert warm["spans"]["graphs.capture"]["count"] == 1
+    for _ in range(3):
+        assert torch.equal(f(x), x * 2)
+    torch.cuda.synchronize()
+    snap = telemetry.snapshot()
+    assert snap["spans"]["inside.span"]["count"] == 1
+    assert snap["counters"]["inside.count"] == 1
+    assert snap["marks"]["made"] == 1 + 2     # the first replay's two
+    assert snap["spans"]["graphs.replay"]["count"] == 3
