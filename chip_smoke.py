@@ -1987,6 +1987,62 @@ def eval_b1_row(cfg):
     return row
 
 
+def heads_row(cfg):
+    """The heads kernels (`kernels/heads.py`: the four detection heads and
+    the box decode of one decoder iteration, three kernels a call) at the
+    eval cell's shape (B=1, Q=256, D=1024) under bf16 autocast against
+    their plain version (the per-head path's operations, atol 2e-2: the
+    bf16 trunk) and timed by graph replay, beside the plain version's
+    time: the record row without its launches, which the eval twin's run
+    gives. Bound: one read of the f32 parameters and of the input, one
+    write of the outputs, against 2·Q·D·(4·D + 9 + classes + 3) FLOP."""
+    from parq_torch.kernels.heads import (detection_heads,
+                                          detection_heads_plain, head_eps,
+                                          head_tensors)
+    from parq_torch.models.decoder import _MLPHeads
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    D, Q, nc = cfg.dec_dim, cfg.num_queries, cfg.num_semcls + 1
+    heads = _MLPHeads(D, cfg.num_semcls).cuda()
+    with torch.no_grad():
+        for name, p in heads.named_parameters():
+            r = torch.randn(p.shape, device="cuda", generator=gen)
+            norm_scale = name.endswith("weight") and (
+                "layers.1." in name or "layers.5." in name)
+            p.copy_(r / p.shape[1] ** 0.5 if p.dim() >= 2
+                    else r * 0.1 + (1.0 if norm_scale else 0.0))
+    out = torch.randn(1, Q, D, device="cuda", generator=gen)
+    ref = torch.rand(1, Q, 3, device="cuda", generator=gen)
+    mean_size = torch.rand(nc, 3, device="cuda", generator=gen) + 0.5
+    params, eps = head_tensors(heads), head_eps(heads)
+    with torch.inference_mode(), torch.autocast("cuda",
+                                                dtype=torch.bfloat16):
+        new_ref, got = detection_heads(out, ref, heads, mean_size, cfg.scale)
+        want = detection_heads_plain(out, ref, params, mean_size, cfg.scale,
+                                     eps)
+        err = max(float((a - b).abs().max()) for a, b in
+                  zip((new_ref, *got.values()), want))
+        ms = device_ms(lambda: detection_heads(out, ref, heads, mean_size,
+                                               cfg.scale), 50)
+        plain_ms = device_ms(lambda: detection_heads_plain(
+            out, ref, params, mean_size, cfg.scale, eps), 10)
+    check(err <= 2e-2, f"detection_heads: max abs err {err} > 2e-2")
+    flops = 2 * Q * D * (4 * D + 9 + nc + 3)
+    nbytes = 4 * (sum(p.numel() for p in params) + out.numel()
+                  + ref.numel() + Q * (3 + nc + 3 + 3 + 6 + nc))
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    bound, by = 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes > t_ops
+                                            else "operations")
+    phase("kernels", f"detection_heads B=1 Q={Q} D={D}: {ms:.4f} ms a launch "
+          f"(3 kernels), bound {bound:.4f} ms ({by}), plain "
+          f"{plain_ms:.4f} ms; max abs err {err:.3e} (atol 2e-2)")
+    return dict(name="detection_heads", route="cuda",
+                source="parq_torch/csrc/heads.cu",
+                replaces="parq_tpu/models/mlp.py:135 (fused_detection_heads:"
+                " XLA, no pallas_call)", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
 def split_rows(cfg, errs, sp_counts):
     """The kernels' record for the forms on separate K and V and the v2
     hash: B2-train and B3 natural at an SP rank's shapes (half the release
@@ -2124,7 +2180,7 @@ NO_KERNELS = {"pixel_align_sample": 0, "flash_cross_attention_fwd": 0,
               "flash_cross_attention_bwd": 0, "pixel_align_bwd_mem": 0,
               "flash_cross_attention_fwd_train_split": 0,
               "flash_cross_attention_bwd_split": 0, "lap_solve": 0,
-              "dropout_keep_mask": 0}
+              "dropout_keep_mask": 0, "detection_heads": 0}
 # M1 once a train step and once a validation batch (the loss's matcher);
 # the keep masks 5 an iteration of the fold's first phase, 5 in its second
 TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
@@ -2132,7 +2188,8 @@ TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
                      flash_cross_attention_bwd=1, pixel_align_bwd_mem=1,
                      lap_solve=1, dropout_keep_mask=45)
 VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
-                   flash_cross_attention_fwd=8, lap_solve=1)
+                   flash_cross_attention_fwd=8, lap_solve=1,
+                   detection_heads=8)
 # sequence-parallel: per rank, the split forms in training, the fused
 # forward with LSE (the merge needs it) in validation
 SP_TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
@@ -2141,7 +2198,7 @@ SP_TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
                         pixel_align_bwd_mem=1, lap_solve=1,
                         dropout_keep_mask=45)
 SP_VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
-                      flash_cross_attention_fwd_train=8)
+                      flash_cross_attention_fwd_train=8, detection_heads=8)
 
 
 def cli_opts(name, *opts):
@@ -2355,7 +2412,7 @@ SCALED_FOLD_KERNELS = dict(NO_KERNELS, pixel_align_sample=16,
                           dropout_keep_mask=85)
 # the bare eval forward; a validation batch adds M1 (the loss)
 SCALED_VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=16,
-                         flash_cross_attention_fwd=16)
+                         flash_cross_attention_fwd=16, detection_heads=16)
 
 
 def config_tree(path, *opts):
@@ -3806,7 +3863,8 @@ def phase_rehearsal(smi_line):
             torch.backends.cudnn.allow_tf32 = tf32
     (card, card_outs), (cpu, cpu_outs) = runs["cuda"], runs["cpu"]
     launches, shapes, _ = counts["cuda"]
-    want = {k: 2 * v for k, v in VAL_KERNELS.items()}
+    # f32: the heads keep the per-head path
+    want = dict({k: 2 * v for k, v in VAL_KERNELS.items()}, detection_heads=0)
     check(launches == want, f"rehearsal: launches {launches} for 2 "
           f"snippets, want {want}")
     check(len(shapes) == 2 and all(MAX_BOXES in s[1:] for s in shapes),
@@ -4249,6 +4307,7 @@ def main():
                            errs, b1_rows["pixel_align_sample"])
         m1_rows[0]["launches"] = train_counts["lap_solve"]
         b2_eval_row = eval_b1_row(cfg)
+        heads_eval_row = heads_row(cfg)
         del engine
         torch.cuda.empty_cache()
         sp_counts = phase_sp(cfg)
@@ -4262,6 +4321,8 @@ def main():
                          launches=eval_counts["pixel_align_sample"]))
         rows.append(dict(b2_eval_row,
                          launches=eval_counts["flash_cross_attention_fwd"]))
+        rows.append(dict(heads_eval_row,
+                         launches=eval_counts["detection_heads"]))
         phase_vis(smi_line)
         phase_serve_ckpt(ckpt)
         shutil.rmtree(CLI_DIR, ignore_errors=True)

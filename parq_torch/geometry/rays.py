@@ -4,7 +4,7 @@ directions, the reference's double-clamped logit)."""
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -57,3 +57,16 @@ def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
     """logit with the reference's double clamp."""
     x = x.clamp(0.0, 1.0)
     return torch.log(x.clamp(min=eps) / (1.0 - x).clamp(min=eps))
+
+
+def normalize_points(p: torch.Tensor, s: Sequence[float]) -> torch.Tensor:
+    """Metric coords → [0, 1]³ by the scene scale box."""
+    return torch.stack([(p[..., 0] - s[0]) / (s[1] - s[0]),
+                        (p[..., 1] - s[2]) / (s[3] - s[2]),
+                        (p[..., 2] - s[4]) / (s[5] - s[4])], dim=-1)
+
+
+def denormalize_points(p: torch.Tensor, s: Sequence[float]) -> torch.Tensor:
+    return torch.stack([p[..., 0] * (s[1] - s[0]) + s[0],
+                        p[..., 1] * (s[3] - s[2]) + s[2],
+                        p[..., 2] * (s[5] - s[4]) + s[4]], dim=-1)

@@ -9,6 +9,7 @@
 | pixel_align_pallas._pallas_sample_bwd_mem | pixel_align.sample_views_bwd_mem (B4) |
 | ops/hungarian.solve_lap (lax loops, no pallas_call) | lap.solve_lap (M1) |
 | models/decoder._grouped_keep (jax.random, no pallas_call) | dropout.draw_keep (the keep masks) |
+| models/mlp.fused_detection_heads (XLA, no pallas_call) | heads.detection_heads (the four heads and the box decode) |
 
 B2 and B3 in bf16 at the release head dim (256) are the Hopper kernels of
 ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (wgmma on TMA-fed
@@ -26,7 +27,12 @@ one warp per (iteration, sample) pair on cost rows staged in shared
 memory, in JAX's f32 arithmetic: the train step no longer copies its
 costs to the host. The keep-mask kernel (``csrc/dropout.cu``) draws the
 decoder's dropout masks from device seeds with the flash kernels' v1
-counter hash, so the training step reads nothing back.
+counter hash, so the training step reads nothing back. The heads kernels
+(``csrc/heads.cu``) run a decoder iteration's four detection heads and its
+box decode in three launches (two wgmma products with GroupNorm statistics
+from their tiles' epilogues, then the f32 projections and the decode) in
+the bf16 eval forward on the card; training, f32 and the CPU keep the
+per-head modules (`heads.engages`).
 
 The CLI twins (``parq_torch/cli``) and the config tree
 (``parq_torch/config``) changed no kernel: `Trainer.fit` launches B1,
@@ -38,13 +44,14 @@ sequence-parallel training path) run the same kernels on other strides,
 through their own wrappers and counts.
 
 Each wrapper counts its launches in a ``launches`` attribute (a split
-forward with its combine kernel is one launch). B1 and the eval form of
-B2 run through the custom ops ``parq::sample_views`` and
-``parq::flash_kv_fused`` (registered when this package is imported), so a
+forward with its combine kernel is one launch; so is a heads call's three
+kernels). B1, the eval form of B2 and the heads run through the custom ops ``parq::sample_views``,
+``parq::flash_kv_fused`` and ``parq::detection_heads`` (registered when
+this package is imported), so a
 `torch.export` program of the eval forward (`parq_torch.export`) launches
 them, and counts them, as the live model does.
 `SERVE_KERNELS` are the ones a forward for serving launches; the training
-step launches all but the eval form of B2. A CUDA graph's replay runs no
+step launches all but the eval form of B2 and the heads. A CUDA graph's replay runs no
 Python: the graph layer (``parq_torch/graphs.py``) keeps, for each
 captured graph, the launches of one replay (`GraphLaunches`) and counts its
 replays, and `launch_counts` adds replays × launches to the wrappers'
@@ -54,6 +61,7 @@ from .cross_attention import (flash_bwd, flash_bwd_kv,
                               flash_cross_attention_kv_fused, flash_fwd_lse,
                               flash_fwd_lse_kv)
 from .dropout import draw_keep
+from .heads import detection_heads
 from .lap import solve_lap
 from .pixel_align import (pixel_aligned_features_kernel, sample_views,
                           sample_views_bwd_mem)
@@ -68,8 +76,10 @@ KERNELS = {
     "flash_cross_attention_bwd_split": flash_bwd_kv,
     "lap_solve": solve_lap,
     "dropout_keep_mask": draw_keep,
+    "detection_heads": detection_heads,
 }
-SERVE_KERNELS = ("pixel_align_sample", "flash_cross_attention_fwd")
+SERVE_KERNELS = ("pixel_align_sample", "flash_cross_attention_fwd",
+                 "detection_heads")
 
 
 _GRAPHS = set()            # the live graphs' GraphLaunches
@@ -107,7 +117,8 @@ def reset_launch_counts() -> None:
         g.replays = 0
 
 
-__all__ = ["GraphLaunches", "KERNELS", "SERVE_KERNELS", "draw_keep",
+__all__ = ["GraphLaunches", "KERNELS", "SERVE_KERNELS", "detection_heads",
+           "draw_keep",
            "flash_bwd", "flash_bwd_kv",
            "flash_cross_attention_kv_fused", "flash_fwd_lse",
            "flash_fwd_lse_kv",

@@ -44,6 +44,7 @@ LIBRARIES = {
                         "flash_bwd_sm90"),
     "lap": ("lap",),
     "dropout": ("dropout",),
+    "heads": ("heads",),
 }
 SOURCES = tuple(LIBRARIES)
 CSRC = Path(__file__).resolve().parents[1] / "csrc"

@@ -76,7 +76,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..geometry import Camera, Pose, inverse_sigmoid
+from ..geometry import (Camera, Pose, denormalize_points, inverse_sigmoid,
+                        normalize_points)
 from ..kernels import (flash_cross_attention_kv_fused,
                        pixel_aligned_features_kernel)
 from ..kernels.cross_attention import (
@@ -84,6 +85,7 @@ from ..kernels.cross_attention import (
     flash_cross_attention_kv_fused_precomputed,
     flash_cross_attention_kv_fused_train)
 from ..kernels.dropout import draw_keep
+from ..kernels.heads import detection_heads, engages as heads_engage
 from ..kernels.pixel_align import (pixel_aligned_features_precomputed,
                                    pixel_aligned_features_train)
 from ..ops.posemb import pos2posemb3d
@@ -160,19 +162,6 @@ def apply_drop(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float):
         return x
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
-
-
-def normalize_points(p: torch.Tensor, s: Sequence[float]) -> torch.Tensor:
-    """Metric coords → [0, 1]³ by the scene scale box."""
-    return torch.stack([(p[..., 0] - s[0]) / (s[1] - s[0]),
-                        (p[..., 1] - s[2]) / (s[3] - s[2]),
-                        (p[..., 2] - s[4]) / (s[5] - s[4])], dim=-1)
-
-
-def denormalize_points(p: torch.Tensor, s: Sequence[float]) -> torch.Tensor:
-    return torch.stack([p[..., 0] * (s[1] - s[0]) + s[0],
-                        p[..., 1] * (s[3] - s[2]) + s[2],
-                        p[..., 2] * (s[5] - s[4]) + s[4]], dim=-1)
 
 
 def _heads_split(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -573,6 +562,12 @@ class PARQDecoder(nn.Module):
                     sp_group=self.sp_group)
         if refs_only:
             out, attn_aux = out
+        elif heads_engage(out, ref, heads, G):   # the heads in 3 kernels
+            new_ref, outputs = detection_heads(out, ref, heads,
+                                               self.mean_size, s)
+            return new_ref, {**outputs, "coord_pos": query_metric,
+                             "center_im": center_im,
+                             "center_valid": center_valid}
 
         center_offset = heads.center_head(out, n_groups=G)
         center_norm = torch.sigmoid(center_offset + inverse_sigmoid(ref))

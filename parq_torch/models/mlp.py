@@ -7,7 +7,9 @@ jointly, per sample. `GroupNorm1` keeps that quirk on (B, N, C) tokens.
 Parameters keep the reference's Conv1d shapes (O, I, 1) and its
 ``layers.{i}`` indices, so the torch checkpoint layout loads unchanged.
 `fused_detection_heads` of the JAX package is a TPU fusion of the same
-math; here each head runs on its own.
+math. Here each head runs on its own in training, in f32 and on the CPU;
+the bf16 eval forward on the card runs all four, with the box decode, as
+three kernels (`kernels/heads.py`, the decoder's dispatch).
 """
 from __future__ import annotations
 

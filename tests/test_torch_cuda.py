@@ -759,8 +759,9 @@ def test_preprocess_scene_card_equals_cpu(gen, tmp_path):
 def _card_tiny(**kw):
     """The tiny model at widths the kernels take (head dim 64)."""
     from parq_torch.config import ModelConfig
-    return ModelConfig.tiny(fpn_channels=64, tokenizer_out_channels=256,
-                            dec_dim=256, num_queries=16, **kw)
+    return ModelConfig.tiny(**dict(dict(
+        fpn_channels=64, tokenizer_out_channels=256, dec_dim=256,
+        num_queries=16), **kw))
 
 
 @pytest.mark.parametrize("rows,row0,G,M", [(8, 0, 1, 4 * 256 * 256),
@@ -804,6 +805,138 @@ def test_graphed_forward_replays_the_eager_forward(gen):
             got, want = fwd(x), model(x)
             for k, v in want.items():
                 assert torch.equal(got[k], v), k
+
+
+def _heads_case(gen, B, Q=256, D=1024, classes=9):
+    """Four detection heads at width D (`_MLPHeads`) with random weights
+    (LeCun normal, GroupNorm scales 1 + N(0, 0.1²), biases N(0, 0.1²)) and
+    an f32 decoder-layer output, reference points, mean sizes and the
+    release scale box."""
+    from parq_torch.models.decoder import _MLPHeads
+    heads = _MLPHeads(D, classes).cuda()
+    with torch.no_grad():
+        for name, p in heads.named_parameters():
+            r = torch.randn(p.shape, device="cuda", generator=gen)
+            if p.dim() >= 2:
+                p.copy_(r / p.shape[1] ** 0.5)
+            else:
+                norm_scale = name.endswith("weight") and (
+                    "layers.1." in name or "layers.5." in name)
+                p.copy_(r * 0.1 + (1.0 if norm_scale else 0.0))
+    out = torch.randn(B, Q, D, device="cuda", generator=gen)
+    ref = torch.rand(B, Q, 3, device="cuda", generator=gen)
+    mean_size = torch.rand(classes + 1, 3, device="cuda", generator=gen) + 0.5
+    return heads, out, ref, mean_size, (-3.0, 3.0, -2.0, 0.5, 0.25, 5.25)
+
+
+# kernel against plain (max abs error), and why: the sem_cls logits and
+# probabilities are f32 products of the same f32 values, 1,024 terms summed
+# in another order; the center, rotation and next reference points pass the
+# bf16 trunk, where an f32 sum landing on the other side of a bf16 rounding
+# boundary moves one h1 or h2 value by one bf16 ulp (2^-8 of it)
+HEADS_ATOL = {"pred_logits": 1e-4, "sem_cls_prob": 1e-5,
+              "center_unnormalized": 2e-2, "ortho6d": 2e-2,
+              "new_ref": 5e-3}
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_heads_kernels_match_plain(gen, B):
+    """The heads kernels at release widths (Q=256, D=1024) under bf16
+    autocast against their plain version: `HEADS_ATOL`; the argmax class
+    equal, and so the size to 1e-4 relative (exp of an f32 product);
+    one call counts one launch; a second call gives the same bits."""
+    from parq_torch.kernels.heads import (detection_heads,
+                                          detection_heads_plain, engages,
+                                          head_eps, head_tensors)
+    heads, out, ref, mean_size, scale = _heads_case(gen, B)
+    with torch.inference_mode(), torch.autocast("cuda",
+                                                dtype=torch.bfloat16):
+        assert engages(out, ref, heads, 1)
+        before = detection_heads.launches
+        new_ref, got = detection_heads(out, ref, heads, mean_size, scale)
+        torch.cuda.synchronize()
+        assert detection_heads.launches == before + 1
+        again_ref, again = detection_heads(out, ref, heads, mean_size, scale)
+        want = detection_heads_plain(out, ref, head_tensors(heads),
+                                     mean_size, scale, head_eps(heads))
+    assert torch.equal(again_ref, new_ref)
+    for k, v in got.items():
+        assert torch.equal(again[k], v), k
+    got = dict(got, new_ref=new_ref)
+    want = dict(zip(("new_ref", "pred_logits", "center_unnormalized",
+                     "size_unnormalized", "ortho6d", "sem_cls_prob"), want))
+    errs = {k: float((got[k] - want[k]).abs().max()) for k in HEADS_ATOL}
+    print(f"heads B={B}: max abs err {errs}")
+    for k, atol in HEADS_ATOL.items():
+        assert errs[k] <= atol, (k, errs[k])
+    assert torch.equal(got["sem_cls_prob"].argmax(-1),
+                       want["sem_cls_prob"].argmax(-1))
+    torch.testing.assert_close(got["size_unnormalized"],
+                               want["size_unnormalized"], rtol=1e-4, atol=0)
+
+
+def _heads_cfg(dtype):
+    """The card tiny model with 64 queries: widths the heads kernels
+    take."""
+    return _card_tiny(compute_dtype=dtype, num_queries=64)
+
+
+def test_graphed_forward_runs_the_heads_kernels(gen, monkeypatch):
+    """A bf16 eval forward at widths the heads kernels take: a replay
+    equals the eager forward bit for bit and adds one heads call (three
+    kernels) an iteration; the forward's outputs against the per-head
+    path's on the card within 2% of their norm."""
+    from parq_torch.data.synthetic import make_batch, to_device
+    from parq_torch.graphs import Graphed
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.models import BATCH_KEYS, build_model
+    from parq_torch.models import decoder as decoder_mod
+    cfg = _heads_cfg("bfloat16")
+    model = build_model(cfg, seed=0, device="cuda")
+    xs = [to_device(make_batch([i, i + 1], image_size=cfg.image_size),
+                    BATCH_KEYS, "cuda") for i in (0, 2)]
+    fwd = Graphed(model)
+    with torch.inference_mode():
+        fwd(xs[0])
+        reset_launch_counts()
+        got = fwd(xs[1])
+        assert launch_counts()["detection_heads"] == cfg.dec_layers
+        want = model(xs[1])
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+        monkeypatch.setattr(decoder_mod, "heads_engage", lambda *a: False)
+        reset_launch_counts()
+        plain = model(xs[1])
+        assert launch_counts()["detection_heads"] == 0
+    gaps = {k: float((v.float() - plain[k].float()).norm()
+                     / plain[k].float().norm().clamp(min=1e-12))
+            for k, v in want.items() if v.is_floating_point()}
+    print(f"heads forward: kernels vs per-head path, relative gaps {gaps}")
+    assert max(gaps.values()) <= 0.02, gaps
+
+
+def test_graphed_bf16_train_step_keeps_the_per_head_path(gen):
+    """A captured bf16 train step at widths the heads kernels take runs the
+    per-head path: its replay adds no heads call."""
+    from parq_torch.data.synthetic import make_batch, to_device
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.models import build_model
+    from parq_torch.train.__main__ import TRAIN_KEYS
+    from parq_torch.train.train_step import (make_graphed_train_step,
+                                             make_optimizer)
+    cfg = _heads_cfg("bfloat16")
+    model = build_model(cfg, seed=0, device="cuda").train()
+    step = make_graphed_train_step(
+        model, make_optimizer(model, capturable=True))
+    g = torch.Generator(device="cuda")
+    b = to_device(make_batch([0, 1], image_size=cfg.image_size), TRAIN_KEYS,
+                  "cuda")
+    reset_launch_counts()
+    step(b, g.manual_seed(1))                     # eager + capture
+    step(b, g.manual_seed(2))                     # a replay
+    counts = launch_counts()
+    assert counts["flash_cross_attention_bwd"] == 2
+    assert counts["detection_heads"] == 0
 
 
 @pytest.mark.parametrize("path", [{}, {"remat": True},
