@@ -101,6 +101,12 @@ Phases, each printed on its own line; any failure exits non-zero:
                with g in the memory's dtype, as B1's output hands it on the
                training paths); B4 on its three distributions; B2 at B=1 over the release N (the eval
                twin's shape), its launches from the eval twin's run;
+               the DCNv2 sampling kernel at PETR's two DCN stage shapes
+               (six cameras; bf16, within one bf16 ulp of the plain
+               version's f32 sums, two launches equal bit for bit);
+ 10b. petr   — PETR at its published widths in bf16 through Graphed: two
+               replays equal the eager forward bit for bit, 9 DCN
+               launches a replay; the replay's ms and the peak memory;
  11. sp      — two ranks on the one card over gloo (NCCL refuses two ranks
                on one GPU), MESH_MODEL 2, the memory tokens sharded: an f32
                step (TF32 off, L=2, B=1, dropout 0) against the one-process
@@ -2043,6 +2049,123 @@ def heads_row(cfg):
                 library_ms=None)
 
 
+PETR_DCN_SHAPES = {"stage3": (6, 256, 32, 88), "stage4": (6, 512, 16, 44)}
+PETR_DCN_BLOCKS = {"stage3": 6, "stage4": 3}     # ResNet-50's blocks there
+
+
+def dcn_inputs(shape, gen):
+    """A bf16 channels-last map and offsets at a PETR DCN stage's shape:
+    offsets of a few pixels, the first row pushed off the top and the last
+    column off the right, one point far off the map, mask logits around
+    0."""
+    N, C, H, W = shape
+    x = torch.randn(N, C, H, W, device="cuda", generator=gen)
+    om = torch.randn(N, 27, H, W, device="cuda", generator=gen) * 2
+    om[:, 0:18:2, 0] -= 4.0
+    om[:, 1:18:2, :, -1] += 4.0
+    om[0, 0, 1, 1], om[0, 1, 1, 1] = -1e4, 1e4
+    cl = torch.channels_last
+    return (x.to(torch.bfloat16).contiguous(memory_format=cl),
+            om.to(torch.bfloat16).contiguous(memory_format=cl))
+
+
+def deform_rows():
+    """The DCNv2 sampling kernel (`kernels/deform_conv.py`) at PETR's two
+    DCN stage shapes (six cameras) in bf16 against its plain version's f32
+    sums: within one bf16 ulp of them (the kernel rounds its f32 sums
+    once; 5e-5 for the rounding of grid_sample's normalised coordinates),
+    two launches equal bit for bit, the far point 0. Timed by graph
+    replay beside the plain version: the record rows without their
+    launches, which `phase_petr` gives. Bound: bytes, the map and the 27
+    offset and mask channels read once, the columns written once."""
+    from parq_torch.kernels.deform_conv import (deform_columns,
+                                                deform_columns_plain)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = {}
+    for stage, shape in PETR_DCN_SHAPES.items():
+        x, om = dcn_inputs(shape, gen)
+        got = deform_columns(x, om)
+        sums = deform_columns_plain(x.float(), om.float())
+        excess = float(((got.float() - sums).abs()
+                        - (sums.abs() * 2 ** -7 + 5e-5)).max())
+        err = float((got.float() - sums).abs().max())
+        check(excess <= 0, f"deform_conv {stage}: beyond one bf16 ulp of "
+              f"the plain f32 sums by {excess:.3e} (max abs err {err:.3e})")
+        check(torch.equal(got, deform_columns(x, om)),
+              f"deform_conv {stage}: two launches differ")
+        check(torch.count_nonzero(got[0, 1, 1, 0]) == 0,
+              f"deform_conv {stage}: a point far off the map sampled")
+        ms = device_ms(lambda: deform_columns(x, om), 50)
+        plain_ms = device_ms(lambda: deform_columns_plain(x, om), 5)
+        nbytes = (x.numel() + om.numel() + got.numel()) * x.element_size()
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        phase("kernels", f"deform_conv {stage} x {tuple(shape)} bf16: "
+              f"{ms:.4f} ms a launch, bound {bound:.4f} ms (bytes), plain "
+              f"{plain_ms:.4f} ms; max abs err {err:.3e} (within one bf16 "
+              "ulp of the f32 sums)")
+        rows[stage] = dict(
+            name=f"deform_conv_{stage}", route="cuda",
+            source="parq_torch/csrc/deform_conv.cu",
+            replaces="none (the JAX package has no deformable convolution)",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes", library_ms=None)
+    return rows
+
+
+def phase_petr(smi_line, replays=20):
+    """PETR at its published widths in bf16 (`build_petr_model`, the DCN
+    offset convs given offsets of a few pixels, not mmcv's zeros) through
+    `Graphed`, as the benchmark's PETR cell runs it: two replays equal the
+    eager forward bit for bit and launch the DCN kernel 9 times each (one
+    a DCN block, the six cameras batched); the replay's time and the
+    peak memory. Returns the DCN launches a forward."""
+    from parq_torch.config import PETRConfig
+    from parq_torch.graphs import Graphed
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.models import build_petr_model
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cfg = PETRConfig(compute_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_petr_model(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "conv_offset"):
+                m.conv_offset.weight.normal_(0, 0.05, generator=gen)
+    W, H = cfg.image_size
+    xs = [{"img": torch.randint(0, 256, (1, cfg.num_cams, 3, H, W),
+                                device="cuda", dtype=torch.uint8,
+                                generator=gen),
+           "lidar2img": torch.eye(4, device="cuda").repeat(
+               1, cfg.num_cams, 1, 1) + 0.1 * torch.randn(
+                   1, cfg.num_cams, 4, 4, device="cuda", generator=gen)}
+          for _ in range(2)]
+    fwd = Graphed(model)
+    with torch.inference_mode():
+        fwd(xs[0])                                    # warm-up + capture
+        reset_launch_counts()
+        got = [fwd(x) for x in xs]
+        torch.cuda.synchronize()
+        launches = launch_counts()["deform_conv"]
+        check(launches == 2 * 9, f"petr: {launches} DCN launches in two "
+              "replays, not 18")
+        for x, g in zip(xs, got):
+            want = model(x)
+            for k, v in want.items():
+                check(bool(torch.isfinite(v).all()), f"petr: {k} not finite")
+                check(torch.equal(g[k], v), f"petr: replayed {k} differs "
+                      "from the eager forward")
+        ms = cuda_ms(lambda: fwd(xs[1]), replays)
+    peak = torch.cuda.max_memory_allocated()
+    phase("petr", f"Graphed(PETRModel) bf16, {cfg.num_cams} cameras of "
+          f"{W}x{H}, {cfg.num_query} queries: a replay equals the eager "
+          "forward bit for bit, 9 DCN launches a replay; "
+          f"{ms:.3f} ms a replay (copy-in and clones included), peak {peak}"
+          f" B; {smi_line}")
+    del fwd, model
+    torch.cuda.empty_cache()
+    return launches // 2
+
+
 def split_rows(cfg, errs, sp_counts):
     """The kernels' record for the forms on separate K and V and the v2
     hash: B2-train and B3 natural at an SP rank's shapes (half the release
@@ -2180,7 +2303,8 @@ NO_KERNELS = {"pixel_align_sample": 0, "flash_cross_attention_fwd": 0,
               "flash_cross_attention_bwd": 0, "pixel_align_bwd_mem": 0,
               "flash_cross_attention_fwd_train_split": 0,
               "flash_cross_attention_bwd_split": 0, "lap_solve": 0,
-              "dropout_keep_mask": 0, "detection_heads": 0}
+              "dropout_keep_mask": 0, "detection_heads": 0,
+              "deform_conv": 0}
 # M1 once a train step and once a validation batch (the loss's matcher);
 # the keep masks 5 an iteration of the fold's first phase, 5 in its second
 TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
@@ -4308,6 +4432,11 @@ def main():
         m1_rows[0]["launches"] = train_counts["lap_solve"]
         b2_eval_row = eval_b1_row(cfg)
         heads_eval_row = heads_row(cfg)
+        dcn_rows = deform_rows()
+        check(phase_petr(smi_line) == sum(PETR_DCN_BLOCKS.values()),
+              "petr: DCN launches a forward are not one a DCN block")
+        rows += [dict(dcn_rows[s], launches=n)      # launches a forward
+                 for s, n in PETR_DCN_BLOCKS.items()]
         del engine
         torch.cuda.empty_cache()
         sp_counts = phase_sp(cfg)

@@ -5,7 +5,8 @@ configs/eval.yaml and of the flagship model the JAX package builds
 (`__graft_entry__._flagship_model`). `ModelConfig.tiny()` is that module's
 tiny variant, for CPU tests; `ModelConfig.from_cfg` reads a config tree
 (`parq_torch.config.get_cfg`) as the JAX package's
-`PARQModel.from_config` does.
+`PARQModel.from_config` does. `PETRConfig` is the second architecture's:
+its defaults are PETR's published R50-DCN P4 setting.
 """
 from __future__ import annotations
 
@@ -127,3 +128,61 @@ class ServeConfig:
                    track_scale=tuple(float(v) for v in dec.TRACK_SCALE),
                    conf_thresh=float(dec.CONF_THRESH),
                    enable_nms=bool(dec.ENABLE_NMS))
+
+
+PETR_POSITION_RANGE = (-61.2, -61.2, -10.0, 61.2, 61.2, 10.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class PETRConfig:
+    """PETR (Liu et al., ECCV 2022), the published R50-DCN P4 model:
+    megvii-research/PETR projects/configs/petr/petr_r50dcn_gridmask_p4.py.
+    Six cameras resized to 1408 x 512 at test time; a caffe-style
+    ResNet-50 with DCNv2 in stages 3 and 4; CPFPN over C4, C5 (1024, 2048
+    → 256) whose P4 (stride 16) the head reads; the 3D position encoder
+    over 64 LID depth bins from 1 m; 900 queries; 6 post-norm decoder
+    layers of width 256, 8 heads, FFN 2048; the NMS-free decode of the top
+    300. Ranges are (x_min, y_min, z_min, x_max, y_max, z_max) in metres,
+    in the lidar frame. The input normalisation is caffe's: BGR pixels in
+    0..255, less the mean, over the std."""
+    image_size: Tuple[int, int] = (1408, 512)     # (W, H), after the resize
+    num_cams: int = 6
+    resnet_name: str = "resnet50"
+    style: str = "caffe"
+    stage_with_dcn: Tuple[bool, ...] = (False, False, True, True)
+    neck_in_channels: Tuple[int, ...] = (1024, 2048)    # C4, C5
+    stride: int = 16                              # P4
+    embed_dims: int = 256
+    num_heads: int = 8
+    ffn_dim: int = 2048
+    num_layers: int = 6
+    num_query: int = 900
+    num_classes: int = 10
+    code_size: int = 10             # cx, cy, w, l, cz, h, sin, cos, vx, vy
+    num_reg_fcs: int = 2
+    depth_num: int = 64
+    depth_start: float = 1.0
+    position_range: Tuple[float, ...] = PETR_POSITION_RANGE
+    pc_range: Tuple[float, ...] = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
+    post_center_range: Tuple[float, ...] = PETR_POSITION_RANGE
+    max_num: int = 300
+    img_mean: Tuple[float, ...] = (103.530, 116.280, 123.675)   # BGR
+    img_std: Tuple[float, ...] = (57.375, 57.120, 58.395)
+    compute_dtype: str = "float32"                # or "bfloat16"
+
+    @classmethod
+    def tiny(cls, **overrides) -> "PETRConfig":
+        """A CPU-test size: the same backbone and neck, 2 cameras of
+        128 x 64, 8 depth bins, 2 layers of width 32 with 4 heads, 24
+        queries, the top 20 decoded."""
+        kw = dict(image_size=(128, 64), num_cams=2, embed_dims=32,
+                  num_heads=4, ffn_dim=64, num_layers=2, num_query=24,
+                  depth_num=8, max_num=20)
+        kw.update(overrides)
+        return cls(**kw)
+
+    @property
+    def feat_size(self) -> Tuple[int, int]:
+        """(w, h) of P4."""
+        return (self.image_size[0] // self.stride,
+                self.image_size[1] // self.stride)

@@ -70,3 +70,43 @@ class Pose:
             + p3d[..., 2] * R[..., i, 2]
             for i in range(3)], dim=-1)
         return out + self.t[..., None, :]
+
+
+def invert_4x4(m: torch.Tensor) -> torch.Tensor:
+    """Inverses of (..., 4, 4) matrices by cofactors over 2x2 minors,
+    written out elementwise: no solver launch and no host sync, so a CUDA
+    graph can capture it. Run it in float64 where the inputs mix pixel
+    and metre scales (a camera's lidar2img)."""
+    a = [[m[..., i, j] for j in range(4)] for i in range(4)]
+    s0 = a[0][0] * a[1][1] - a[1][0] * a[0][1]
+    s1 = a[0][0] * a[1][2] - a[1][0] * a[0][2]
+    s2 = a[0][0] * a[1][3] - a[1][0] * a[0][3]
+    s3 = a[0][1] * a[1][2] - a[1][1] * a[0][2]
+    s4 = a[0][1] * a[1][3] - a[1][1] * a[0][3]
+    s5 = a[0][2] * a[1][3] - a[1][2] * a[0][3]
+    c5 = a[2][2] * a[3][3] - a[3][2] * a[2][3]
+    c4 = a[2][1] * a[3][3] - a[3][1] * a[2][3]
+    c3 = a[2][1] * a[3][2] - a[3][1] * a[2][2]
+    c2 = a[2][0] * a[3][3] - a[3][0] * a[2][3]
+    c1 = a[2][0] * a[3][2] - a[3][0] * a[2][2]
+    c0 = a[2][0] * a[3][1] - a[3][0] * a[2][1]
+    det = s0 * c5 - s1 * c4 + s2 * c3 + s3 * c2 - s4 * c1 + s5 * c0
+    rows = [
+        [a[1][1] * c5 - a[1][2] * c4 + a[1][3] * c3,
+         -a[0][1] * c5 + a[0][2] * c4 - a[0][3] * c3,
+         a[3][1] * s5 - a[3][2] * s4 + a[3][3] * s3,
+         -a[2][1] * s5 + a[2][2] * s4 - a[2][3] * s3],
+        [-a[1][0] * c5 + a[1][2] * c2 - a[1][3] * c1,
+         a[0][0] * c5 - a[0][2] * c2 + a[0][3] * c1,
+         -a[3][0] * s5 + a[3][2] * s2 - a[3][3] * s1,
+         a[2][0] * s5 - a[2][2] * s2 + a[2][3] * s1],
+        [a[1][0] * c4 - a[1][1] * c2 + a[1][3] * c0,
+         -a[0][0] * c4 + a[0][1] * c2 - a[0][3] * c0,
+         a[3][0] * s4 - a[3][1] * s2 + a[3][3] * s0,
+         -a[2][0] * s4 + a[2][1] * s2 - a[2][3] * s0],
+        [-a[1][0] * c3 + a[1][1] * c1 - a[1][2] * c0,
+         a[0][0] * c3 - a[0][1] * c1 + a[0][2] * c0,
+         -a[3][0] * s3 + a[3][1] * s1 - a[3][2] * s0,
+         a[2][0] * s3 - a[2][1] * s1 + a[2][2] * s0]]
+    inv = torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+    return inv / det[..., None, None]

@@ -10,6 +10,7 @@
 | ops/hungarian.solve_lap (lax loops, no pallas_call) | lap.solve_lap (M1) |
 | models/decoder._grouped_keep (jax.random, no pallas_call) | dropout.draw_keep (the keep masks) |
 | models/mlp.fused_detection_heads (XLA, no pallas_call) | heads.detection_heads (the four heads and the box decode) |
+| (none: the JAX package has no deformable convolution) | deform_conv.deform_columns (PETR's DCNv2 im2col) |
 
 B2 and B3 in bf16 at the release head dim (256) are the Hopper kernels of
 ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (wgmma on TMA-fed
@@ -60,6 +61,7 @@ counters when asked.
 from .cross_attention import (flash_bwd, flash_bwd_kv,
                               flash_cross_attention_kv_fused, flash_fwd_lse,
                               flash_fwd_lse_kv)
+from .deform_conv import deform_columns
 from .dropout import draw_keep
 from .heads import detection_heads
 from .lap import solve_lap
@@ -77,6 +79,7 @@ KERNELS = {
     "lap_solve": solve_lap,
     "dropout_keep_mask": draw_keep,
     "detection_heads": detection_heads,
+    "deform_conv": deform_columns,
 }
 SERVE_KERNELS = ("pixel_align_sample", "flash_cross_attention_fwd",
                  "detection_heads")
@@ -117,8 +120,8 @@ def reset_launch_counts() -> None:
         g.replays = 0
 
 
-__all__ = ["GraphLaunches", "KERNELS", "SERVE_KERNELS", "detection_heads",
-           "draw_keep",
+__all__ = ["GraphLaunches", "KERNELS", "SERVE_KERNELS", "deform_columns",
+           "detection_heads", "draw_keep",
            "flash_bwd", "flash_bwd_kv",
            "flash_cross_attention_kv_fused", "flash_fwd_lse",
            "flash_fwd_lse_kv",

@@ -45,6 +45,7 @@ LIBRARIES = {
     "lap": ("lap",),
     "dropout": ("dropout",),
     "heads": ("heads",),
+    "deform_conv": ("deform_conv",),
 }
 SOURCES = tuple(LIBRARIES)
 CSRC = Path(__file__).resolve().parents[1] / "csrc"

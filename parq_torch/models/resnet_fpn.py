@@ -16,14 +16,22 @@ release setting, shrinks nothing). Convolutions run NCHW in
 channels_last memory format, so the final (B, T, h, w, C) token layout the
 JAX model emits is a free permute. Module and buffer names follow the
 reference checkpoint (``backbone2d.resnet_fpn.body.*`` / ``.fpn.*``).
+
+`ResNetBody` also builds mmdet's caffe-style ResNet with DCNv2 blocks, as
+PETR's R50-DCN backbone (`models/petr.py`): ``style="caffe"`` puts a
+block's stride on its 1x1 conv1 (pytorch style, the default, on its 3x3
+conv2), and `dcn_stages` makes conv2 of every block of the chosen stages
+an `ops.ModulatedDeformConv2d`. The defaults build the release backbone.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.deform_conv import ModulatedDeformConv2d
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -63,13 +71,22 @@ def _conv(cin, cout, k, stride=1):
 
 
 class Bottleneck(nn.Module):
+    """1x1, 3x3, 1x1 with the stride on the 3x3 (`caffe`: on the first
+    1x1); `dcn`: the 3x3 is a DCNv2, which takes stride 1 only."""
     expansion = 4
 
     def __init__(self, cin: int, width: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, caffe: bool = False,
+                 dcn: bool = False):
         super().__init__()
-        self.conv1, self.bn1 = _conv(cin, width, 1), FrozenBatchNorm2d(width)
-        self.conv2 = _conv(width, width, 3, stride)
+        s1, s2 = (stride, 1) if caffe else (1, stride)
+        if dcn and s2 != 1:
+            raise ValueError("a DCNv2 conv2 takes stride 1: use the caffe "
+                             "style")
+        self.conv1 = _conv(cin, width, 1, s1)
+        self.bn1 = FrozenBatchNorm2d(width)
+        self.conv2 = ModulatedDeformConv2d(width, width) if dcn \
+            else _conv(width, width, 3, s2)
         self.bn2 = FrozenBatchNorm2d(width)
         self.conv3 = _conv(width, width * 4, 1)
         self.bn3 = FrozenBatchNorm2d(width * 4)
@@ -106,11 +123,23 @@ class BasicBlock(nn.Module):
 
 
 class ResNetBody(nn.Module):
-    """conv1/bn1/maxpool + layer1..layer4 → [C2, C3, C4, C5]."""
+    """conv1/bn1/maxpool + layer1..layer4 → [C2, C3, C4, C5]. `style`
+    "pytorch" or "caffe" and `dcn_stages` (one flag a stage) apply to
+    bottleneck blocks only."""
 
-    def __init__(self, name: str = "resnet50"):
+    def __init__(self, name: str = "resnet50", style: str = "pytorch",
+                 dcn_stages: Sequence[bool] = (False, False, False, False)):
         super().__init__()
+        if style not in ("pytorch", "caffe"):
+            raise ValueError(f"style {style!r}: pytorch or caffe")
         block = Bottleneck if name in BOTTLENECK else BasicBlock
+        extra = [{} for _ in range(4)]
+        if block is Bottleneck:
+            extra = [dict(caffe=style == "caffe", dcn=bool(d))
+                     for d in dcn_stages]
+        elif style != "pytorch" or any(dcn_stages):
+            raise ValueError(f"{name}: the caffe style and DCN need "
+                             "bottleneck blocks")
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
         cin, width = 64, 64
@@ -122,7 +151,7 @@ class ResNetBody(nn.Module):
                 down = bi == 0 and (stride != 1 or cin != width
                                     * block.expansion)
                 layer.append(block(cin, width, stride if bi == 0 else 1,
-                                   down))
+                                   down, **extra[si]))
                 cin = width * block.expansion
             setattr(self, f"layer{si + 1}", nn.Sequential(*layer))
             self.out_channels.append(cin)

@@ -28,9 +28,9 @@ timing events from a fixed pool (`MARKS` of them), recorded on the current
 stream, in two consecutive batches of every `MARK_EVERY` (so that the gap
 from one batch to the next is seen too; an event recorded on an idle
 stream costs the host tens of microseconds, a share of a batch that every
-batch would pay). An **anchor** (`anchor()`, taken by `parse_pred` right
-after its blocking copies to the host, when the stream has drained, at
-most once a tenth of a second) pairs a host time with an event that runs
+batch would pay). An **anchor** (`anchor()`, taken by `parse_pred` and
+`petr_decode` right after their blocking copies to the host, when the
+stream has drained, at most once a tenth of a second) pairs a host time with an event that runs
 within microseconds of it; a mark is placed on the host clock as the
 latest anchor's host time plus the device time from the anchor to the
 mark. The placement is exact only where the stream is empty at the

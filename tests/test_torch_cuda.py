@@ -1200,3 +1200,78 @@ def test_nothing_is_recorded_while_a_stream_captures(gen):
     assert snap["counters"]["inside.count"] == 1
     assert snap["marks"]["made"] == 1 + 2     # the first replay's two
     assert snap["spans"]["graphs.replay"]["count"] == 3
+
+
+def _dcn_inputs(gen, N, C, H, W, dtype):
+    """A map and offsets at PETR's shapes: offsets of a few pixels, the
+    first row pushed off the top, the last column off the right, one point
+    far off the map, mask logits around 0."""
+    x = torch.randn(N, C, H, W, device="cuda", generator=gen).to(dtype)
+    om = torch.randn(N, 27, H, W, device="cuda", generator=gen) * 2
+    om[:, 0:18:2, 0] -= 4.0
+    om[:, 1:18:2, :, -1] += 4.0
+    om[0, 0, 1, 1], om[0, 1, 1, 1] = -1e4, 1e4
+    cl = torch.channels_last
+    return (x.contiguous(memory_format=cl),
+            om.to(dtype).contiguous(memory_format=cl))
+
+
+@pytest.mark.parametrize("shape", [(6, 256, 32, 88), (6, 512, 16, 44)],
+                         ids=["stage3", "stage4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_deform_conv_kernel_matches_plain(gen, shape, dtype):
+    """The DCNv2 sampling kernel against its plain version at PETR's
+    shapes: the kernel's f32 sums differ from grid_sample's by the
+    rounding of its normalised coordinates (5e-5); in bf16 the sums are
+    rounded once, so the outputs lie within one bf16 ulp of that."""
+    from parq_torch.kernels.deform_conv import (deform_columns,
+                                                deform_columns_plain)
+    x, om = _dcn_inputs(gen, *shape, dtype)
+    before = deform_columns.launches
+    got = deform_columns(x, om)
+    torch.cuda.synchronize()
+    assert deform_columns.launches == before + 1
+    assert got.dtype == dtype and got.shape == (shape[0], shape[2], shape[3],
+                                                9, shape[1])
+    sums = deform_columns_plain(x.float(), om.float())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, sums, rtol=0, atol=5e-5)
+    else:
+        ulp = sums.abs() * 2 ** -7
+        assert bool(((got.float() - sums).abs() <= ulp + 5e-5).all())
+    assert torch.count_nonzero(got[0, 1, 1, 0]) == 0     # the far point
+    again = deform_columns(x, om)
+    assert torch.equal(got, again)                      # no atomics
+
+
+def test_graphed_petr_replays_the_eager_forward(gen):
+    """PETR at its published widths, bf16: a replay equals the eager
+    forward bit for bit, and launches the DCN kernel 9 times (one a DCN
+    block, the six cameras batched)."""
+    from parq_torch.config import PETRConfig
+    from parq_torch.graphs import Graphed
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.models import build_petr_model
+    cfg = PETRConfig(compute_dtype="bfloat16")
+    model = build_petr_model(cfg, seed=0, device="cuda")
+    with torch.no_grad():      # offsets of a few pixels, not mmcv's zeros
+        for m in model.modules():
+            if hasattr(m, "conv_offset"):
+                m.conv_offset.weight.normal_(0, 0.05, generator=gen)
+    W, H = cfg.image_size
+    xs = [{"img": torch.randint(0, 256, (1, 6, 3, H, W), device="cuda",
+                                dtype=torch.uint8, generator=gen),
+           "lidar2img": torch.eye(4, device="cuda").repeat(1, 6, 1, 1)
+           + 0.1 * torch.randn(1, 6, 4, 4, device="cuda", generator=gen)}
+          for _ in range(2)]
+    fwd = Graphed(model)
+    with torch.inference_mode():
+        fwd(xs[0])                                     # warm-up + capture
+        reset_launch_counts()
+        got = [fwd(x) for x in xs]
+        assert launch_counts()["deform_conv"] == 2 * 9
+        for x, g in zip(xs, got):
+            want = model(x)
+            for k, v in want.items():
+                assert torch.isfinite(v).all(), k
+                assert torch.equal(g[k], v), k
