@@ -60,9 +60,10 @@ Phases, each printed on its own line; any failure exits non-zero:
   6. serve   — an Engine at the release config (ResNet50, 3 x 320x240,
                L=8, Q=256, dim 1024, B=8, bf16) answers 3 /detect requests
                over HTTP; every output is finite, each serving kernel's
-               launch count rose by exactly 8 per request, no training
-               kernel launched, and the token memory the sampler reads came
-               in bf16;
+               launch count rose by exactly 8 per request and the
+               frozen-BN pass's by 49 (one a BN site of the ResNet-50 body
+               but the downsamples'), no training kernel launched, and the
+               token memory the sampler reads came in bf16;
   7. parity  — the same seeded weights and batch, B=1 f32, TF32 off: the
                card's forward (kernels) against the port's CPU forward
                (plain versions), atol 2e-3, every output of the last
@@ -103,10 +104,19 @@ Phases, each printed on its own line; any failure exits non-zero:
                twin's shape), its launches from the eval twin's run;
                the DCNv2 sampling kernel at PETR's two DCN stage shapes
                (six cameras; bf16, within one bf16 ulp of the plain
-               version's f32 sums, two launches equal bit for bit);
+               version's f32 sums, two launches equal bit for bit); the
+               frozen-BN pass (`frozen_bn_rows`) at PETR's stem map, a
+               layer-1 residual site, a downsample site and the release
+               stem, random non-identity buffers, bit for bit the modules'
+               ops, two launches equal, timed against its byte bound and
+               the modules' ops; each row's launches a forward from a
+               recorder around the body's call sites in an eager PETR
+               forward (summing to the replay's 49) and a release one
+               (summing to the eval twin's count a snippet);
  10b. petr   — PETR at its published widths in bf16 through Graphed: two
                replays equal the eager forward bit for bit, 9 DCN
-               launches a replay; the replay's ms and the peak memory;
+               launches and 49 frozen-BN launches a replay; the replay's
+               ms and the peak memory;
  11. sp      — two ranks on the one card over gloo (NCCL refuses two ranks
                on one GPU), MESH_MODEL 2, the memory tokens sharded: an f32
                step (TF32 off, L=2, B=1, dropout 0) against the one-process
@@ -186,7 +196,8 @@ Phases, each printed on its own line; any failure exits non-zero:
                1e-5 (TF32 off), bf16 at B=8 to 1e-2; the bf16 artifact
                behind the server answers 3 /detect requests, B1 and B2
                rising by exactly 8 a request (the program runs the
-               kernels through their custom ops), nothing else launching;
+               kernels through their custom ops), nothing else launching
+               (the export traced the body's modules: no frozen-BN pass);
  18. fit-sp  — the train twin under `torchrun --standalone --nproc_per_node
                2` (gloo), TPU.SEQ_PARALLEL True, MESH_MODEL 2, B=8: 2 steps,
                1 validation, the checkpoint written once (by rank 0), the
@@ -1035,11 +1046,15 @@ def serve_requests(engine, requests, what="serve"):
     return answers, counts, n_dets
 
 
-def check_serve_counts(counts, cfg, requests, what):
-    """Each serving kernel launched L times a request, nothing else."""
+def check_serve_counts(counts, cfg, requests, what, body_sites=None):
+    """Each serving kernel launched L times a request, the frozen-BN pass
+    `body_sites` times (a bf16 ResNet-50 forward's `BODY_SITES` unless
+    given), nothing else."""
     from parq_torch.kernels import SERVE_KERNELS
+    body_sites = BODY_SITES if body_sites is None else body_sites
     for name, n in counts.items():
-        want = cfg.dec_layers * requests if name in SERVE_KERNELS else 0
+        want = requests * (cfg.dec_layers if name in SERVE_KERNELS
+                           else body_sites if name == "frozen_bn" else 0)
         check(n == want, f"{what}: {name}: {n} launches in {requests} "
               f"requests, want {want}")
 
@@ -1077,7 +1092,8 @@ def phase_serve(serve_cfg, batch_size, requests=3):
             check(bool(torch.isfinite(v).all()), f"non-finite output {k}")
     phase("serve", f"{requests} /detect requests answered, {n_dets} "
           f"detections, outputs finite; launches {counts} "
-          f"({cfg.dec_layers} per request); token memory in "
+          f"({cfg.dec_layers} per request, the frozen-BN pass "
+          f"{counts['frozen_bn'] // requests}); token memory in "
           f"{cfg.compute_dtype}")
     return engine, counts, requests
 
@@ -2112,13 +2128,140 @@ def deform_rows():
     return rows
 
 
+# the frozen-BN pass's record: (model, map, residual) at PETR's stem (6
+# cameras, 704x256 after conv1), its layer-1 sites (352x128: the two
+# identity blocks, the first block's downsample) and the release stem (3
+# views, 160x120); each row's launches a forward are that site's in the
+# model's `frozen_bn_tally`
+FROZEN_BN_CASES = {
+    "petr_stem": ("petr", (6, 64, 256, 704), None),
+    "petr_layer1_identity": ("petr", (6, 256, 128, 352), "identity"),
+    "petr_layer1_downsample": ("petr", (6, 256, 128, 352), "downsample"),
+    "release_stem": ("release", (3, 64, 120, 160), None),
+}
+
+
+def frozen_bn_tally(run):
+    """The frozen-BN pass's launches in one eager call of `run` under
+    inference mode, by (map shape, form): the body's `frozen_bn_site`
+    wrapped by a recorder that calls through and tallies each call in
+    which the kernel's launch counter moved (form None, "identity" or
+    "downsample")."""
+    import importlib
+    from parq_torch.kernels.frozen_bn import frozen_bn_site
+    body = importlib.import_module("parq_torch.models.resnet_fpn")
+    tally = {}
+
+    def record(x, bn, residual=None, residual_bn=None):
+        before = frozen_bn_site.launches
+        y = frozen_bn_site(x, bn, residual, residual_bn)
+        form = (None if residual is None
+                else "identity" if residual_bn is None else "downsample")
+        key = (tuple(x.shape), form)
+        tally[key] = tally.get(key, 0) + frozen_bn_site.launches - before
+        return y
+
+    body.frozen_bn_site = record
+    try:
+        with torch.inference_mode():
+            run()
+        torch.cuda.synchronize()
+    finally:
+        body.frozen_bn_site = frozen_bn_site
+    return {k: n for k, n in tally.items() if n}
+
+
+def release_frozen_bn_tally(cfg, eval_counts, snippets=8):
+    """`frozen_bn_tally` of one bf16 release forward at B=1 (the eval
+    twin's batch); its launches must be those the eval twin measured a
+    snippet (`eval_counts` over `snippets`)."""
+    from parq_torch.data.synthetic import make_batch, to_device
+    from parq_torch.models import BATCH_KEYS, build_model
+    model = build_model(cfg, seed=0, device="cuda")
+    batch = to_device(make_batch([0], image_size=cfg.image_size,
+                                 num_views=cfg.num_views), BATCH_KEYS,
+                      "cuda")
+    tally = frozen_bn_tally(lambda: model(batch))
+    want = eval_counts["frozen_bn"] / snippets
+    check(sum(tally.values()) == want, f"release: the recorder tallied "
+          f"{sum(tally.values())} frozen-BN launches in a forward, the eval "
+          f"twin measured {want} a snippet")
+    del model
+    torch.cuda.empty_cache()
+    return tally
+
+
+def frozen_bn_rows(tallies):
+    """The frozen-BN pass (`kernels/frozen_bn.py`) at `FROZEN_BN_CASES`,
+    bf16 channels-last maps, random non-identity buffers (variances over
+    eight decades): bit for bit the modules' ops (its plain version), two
+    launches equal; timed by graph replay against its bound (bytes: each
+    map read once, the output written once) and the modules' ops. The
+    record rows, with the launches a forward that `tallies` (model name →
+    `frozen_bn_tally`) measured at the row's map and form."""
+    from parq_torch.kernels.frozen_bn import (frozen_bn_site,
+                                              frozen_bn_site_plain)
+    from parq_torch.models.resnet_fpn import FrozenBatchNorm2d
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def random_bn(C):
+        m = FrozenBatchNorm2d(C).cuda()
+        for b in (m.weight, m.bias, m.running_mean):
+            b.copy_(torch.randn(C, device="cuda", generator=gen))
+        m.running_var.copy_(10 ** (8 * torch.rand(C, device="cuda",
+                                                  generator=gen) - 4))
+        return m
+
+    def bf16_map(shape):                     # channels-last memory
+        N, C, H, W = shape
+        return (torch.randn(N, H, W, C, device="cuda", generator=gen)
+                * 3).to(torch.bfloat16).permute(0, 3, 1, 2)
+
+    rows = []
+    for name, (model, shape, res) in FROZEN_BN_CASES.items():
+        sites = tallies[model].get((shape, res), 0)
+        check(sites > 0, f"frozen_bn {name}: no launch at {shape} "
+              f"({res or 'ReLU'}) in the {model} forward's tally")
+        x, bn = bf16_map(shape), random_bn(shape[1])
+        args = () if res is None else (bf16_map(shape),) + (
+            (random_bn(shape[1]),) if res == "downsample" else ())
+        with torch.inference_mode():
+            got = frozen_bn_site(x, bn, *args)
+            want = frozen_bn_site_plain(x, bn, *args)
+            again = frozen_bn_site(x, bn, *args)
+        bits = [t.view(torch.int16) for t in (got, want, again)]
+        check(torch.equal(bits[0], bits[1]), f"frozen_bn {name}: the kernel "
+              "differs from the modules' ops")
+        check(torch.equal(bits[0], bits[2]),
+              f"frozen_bn {name}: two launches differ")
+        ms = device_ms(lambda: frozen_bn_site(x, bn, *args), 20)
+        plain_ms = device_ms(lambda: frozen_bn_site_plain(x, bn, *args), 5)
+        nbytes = x.numel() * x.element_size() * (3 if res else 2)
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        phase("kernels", f"frozen_bn {name} x {tuple(shape)} bf16"
+              f"{' + ' + res if res else ''} + ReLU: {ms:.4f} ms a launch, "
+              f"bound {bound:.4f} ms (bytes; {ms / bound:.2f}x), the "
+              f"modules' ops {plain_ms:.4f} ms; bit for bit the modules'; "
+              f"{sites} a {model} forward")
+        rows.append(dict(
+            name=f"frozen_bn_{name}", route="cuda",
+            source="parq_torch/csrc/frozen_bn.cu",
+            replaces="none (XLA fuses the JAX body's frozen BN, ReLU and "
+                     "adds)", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by="bytes", library_ms=None,
+            launches=sites))
+    return rows
+
+
 def phase_petr(smi_line, replays=20):
     """PETR at its published widths in bf16 (`build_petr_model`, the DCN
     offset convs given offsets of a few pixels, not mmcv's zeros) through
     `Graphed`, as the benchmark's PETR cell runs it: two replays equal the
     eager forward bit for bit and launch the DCN kernel 9 times each (one
-    a DCN block, the six cameras batched); the replay's time and the
-    peak memory. Returns the DCN launches a forward."""
+    a DCN block, the six cameras batched) and the frozen-BN pass 49 times
+    (`BODY_SITES`), which an eager forward's `frozen_bn_tally` must sum
+    to; the replay's time and the peak memory. Returns the DCN launches a
+    forward and the tally."""
     from parq_torch.config import PETRConfig
     from parq_torch.graphs import Graphed
     from parq_torch.kernels import launch_counts, reset_launch_counts
@@ -2148,22 +2291,30 @@ def phase_petr(smi_line, replays=20):
         launches = launch_counts()["deform_conv"]
         check(launches == 2 * 9, f"petr: {launches} DCN launches in two "
               "replays, not 18")
+        bn_launches = launch_counts()["frozen_bn"]
+        check(bn_launches == 2 * BODY_SITES, f"petr: {bn_launches} "
+              f"frozen-BN launches in two replays, not {2 * BODY_SITES}")
         for x, g in zip(xs, got):
             want = model(x)
             for k, v in want.items():
                 check(bool(torch.isfinite(v).all()), f"petr: {k} not finite")
                 check(torch.equal(g[k], v), f"petr: replayed {k} differs "
                       "from the eager forward")
+        tally = frozen_bn_tally(lambda: model(xs[0]))
+        check(sum(tally.values()) == bn_launches // 2, f"petr: the "
+              f"recorder tallied {sum(tally.values())} frozen-BN launches "
+              f"in an eager forward, a replay made {bn_launches // 2}")
         ms = cuda_ms(lambda: fwd(xs[1]), replays)
     peak = torch.cuda.max_memory_allocated()
     phase("petr", f"Graphed(PETRModel) bf16, {cfg.num_cams} cameras of "
           f"{W}x{H}, {cfg.num_query} queries: a replay equals the eager "
-          "forward bit for bit, 9 DCN launches a replay; "
+          "forward bit for bit, 9 DCN launches and "
+          f"{bn_launches // 2} frozen-BN launches a replay; "
           f"{ms:.3f} ms a replay (copy-in and clones included), peak {peak}"
           f" B; {smi_line}")
     del fwd, model
     torch.cuda.empty_cache()
-    return launches // 2
+    return launches // 2, tally
 
 
 def split_rows(cfg, errs, sp_counts):
@@ -2304,16 +2455,20 @@ NO_KERNELS = {"pixel_align_sample": 0, "flash_cross_attention_fwd": 0,
               "flash_cross_attention_fwd_train_split": 0,
               "flash_cross_attention_bwd_split": 0, "lap_solve": 0,
               "dropout_keep_mask": 0, "detection_heads": 0,
-              "deform_conv": 0}
+              "deform_conv": 0, "frozen_bn": 0}
+# the frozen-BN pass a bf16 ResNet-50 forward without gradient launches:
+# one a BN site of the body but the 4 downsamples' (the stem, 3 a block)
+BODY_SITES = 49
 # M1 once a train step and once a validation batch (the loss's matcher);
-# the keep masks 5 an iteration of the fold's first phase, 5 in its second
+# the keep masks 5 an iteration of the fold's first phase, 5 in its second;
+# no frozen-BN launch: the configs train the body (BACKBONE2D.FREEZE False)
 TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
                      flash_cross_attention_fwd_train=8,
                      flash_cross_attention_bwd=1, pixel_align_bwd_mem=1,
                      lap_solve=1, dropout_keep_mask=45)
 VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
                    flash_cross_attention_fwd=8, lap_solve=1,
-                   detection_heads=8)
+                   detection_heads=8, frozen_bn=BODY_SITES)
 # sequence-parallel: per rank, the split forms in training, the fused
 # forward with LSE (the merge needs it) in validation
 SP_TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
@@ -2322,7 +2477,8 @@ SP_TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
                         pixel_align_bwd_mem=1, lap_solve=1,
                         dropout_keep_mask=45)
 SP_VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
-                      flash_cross_attention_fwd_train=8, detection_heads=8)
+                      flash_cross_attention_fwd_train=8, detection_heads=8,
+                      frozen_bn=BODY_SITES)
 
 
 def cli_opts(name, *opts):
@@ -2536,7 +2692,8 @@ SCALED_FOLD_KERNELS = dict(NO_KERNELS, pixel_align_sample=16,
                           dropout_keep_mask=85)
 # the bare eval forward; a validation batch adds M1 (the loss)
 SCALED_VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=16,
-                         flash_cross_attention_fwd=16, detection_heads=16)
+                         flash_cross_attention_fwd=16, detection_heads=16,
+                         frozen_bn=BODY_SITES)
 
 
 def config_tree(path, *opts):
@@ -3039,7 +3196,8 @@ def phase_export(smi_line, requests=3):
             torch.backends.cudnn.allow_tf32 = tf32
         del live
     _, counts, n_dets = serve_requests(engine, requests, "export")
-    check_serve_counts(counts, engine.cfg.model, requests, "export")
+    check_serve_counts(counts, engine.cfg.model, requests, "export",
+                       body_sites=0)
     phase("export", f"[{smi_line}] the bf16 artifact behind the server: "
           f"{requests} /detect requests answered, {n_dets} detections; "
           f"launches {counts} ({engine.cfg.model.dec_layers} of B1 and B2 "
@@ -3821,8 +3979,8 @@ def run_bench(*flags, timeout=400):
 def phase_bench(cfg, train_counts, train_steps, smi_line):
     """The bench twin at its default flags, eval and --train: its keys,
     a rate above 0 and below the plausibility guard, and its kernels'
-    launches per iteration (B1 and B2 L each a forward; a step's those of
-    `phase_train`)."""
+    launches per iteration (B1 and B2 L each a forward, the frozen-BN pass
+    49; a step's those of `phase_train`)."""
     from parq_torch.bench import guard_fps
     from parq_torch.kernels import SERVE_KERNELS
     torch.cuda.empty_cache()
@@ -3845,7 +4003,8 @@ def phase_bench(cfg, train_counts, train_steps, smi_line):
         if train:
             want = {k: v / train_steps for k, v in train_counts.items() if v}
         else:
-            want = {k: float(cfg.dec_layers) for k in SERVE_KERNELS}
+            want = dict({k: float(cfg.dec_layers) for k in SERVE_KERNELS},
+                        frozen_bn=float(BODY_SITES))
         check(out["launches_per_iter"] == want, f"bench: {metric} "
               f"launches per iteration {out['launches_per_iter']}, want "
               f"{want}")
@@ -3987,8 +4146,9 @@ def phase_rehearsal(smi_line):
             torch.backends.cudnn.allow_tf32 = tf32
     (card, card_outs), (cpu, cpu_outs) = runs["cuda"], runs["cpu"]
     launches, shapes, _ = counts["cuda"]
-    # f32: the heads keep the per-head path
-    want = dict({k: 2 * v for k, v in VAL_KERNELS.items()}, detection_heads=0)
+    # f32: the heads keep the per-head path, the body its modules
+    want = dict({k: 2 * v for k, v in VAL_KERNELS.items()}, detection_heads=0,
+                frozen_bn=0)
     check(launches == want, f"rehearsal: launches {launches} for 2 "
           f"snippets, want {want}")
     check(len(shapes) == 2 and all(MAX_BOXES in s[1:] for s in shapes),
@@ -4433,7 +4593,8 @@ def main():
         b2_eval_row = eval_b1_row(cfg)
         heads_eval_row = heads_row(cfg)
         dcn_rows = deform_rows()
-        check(phase_petr(smi_line) == sum(PETR_DCN_BLOCKS.values()),
+        dcn_launches, petr_tally = phase_petr(smi_line)
+        check(dcn_launches == sum(PETR_DCN_BLOCKS.values()),
               "petr: DCN launches a forward are not one a DCN block")
         rows += [dict(dcn_rows[s], launches=n)      # launches a forward
                  for s, n in PETR_DCN_BLOCKS.items()]
@@ -4446,6 +4607,9 @@ def main():
         torch.cuda.empty_cache()
         ckpt, _ = phase_fit(smi_line)
         _, eval_counts = phase_eval(ckpt, smi_line)
+        rows += frozen_bn_rows({
+            "petr": petr_tally,
+            "release": release_frozen_bn_tally(cfg, eval_counts)})
         rows.append(dict(b1_rows["pixel_align_sample_eval"],
                          launches=eval_counts["pixel_align_sample"]))
         rows.append(dict(b2_eval_row,

@@ -11,6 +11,7 @@
 | models/decoder._grouped_keep (jax.random, no pallas_call) | dropout.draw_keep (the keep masks) |
 | models/mlp.fused_detection_heads (XLA, no pallas_call) | heads.detection_heads (the four heads and the box decode) |
 | (none: the JAX package has no deformable convolution) | deform_conv.deform_columns (PETR's DCNv2 im2col) |
+| models/resnet_fpn (frozen BN, ReLU, adds: XLA fusions, no pallas_call) | frozen_bn.frozen_bn_site (a BN site of the ResNet body) |
 
 B2 and B3 in bf16 at the release head dim (256) are the Hopper kernels of
 ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (wgmma on TMA-fed
@@ -33,7 +34,12 @@ counter hash, so the training step reads nothing back. The heads kernels
 box decode in three launches (two wgmma products with GroupNorm statistics
 from their tiles' epilogues, then the f32 projections and the decode) in
 the bf16 eval forward on the card; training, f32 and the CPU keep the
-per-head modules (`heads.engages`).
+per-head modules (`heads.engages`). The frozen-BN kernel
+(``csrc/frozen_bn.cu``) applies a BN site of the ResNet body, with its
+residual add and ReLU, in one pass over a channels-last bf16 map, bit for
+bit as the modules' ops wherever no gradient is recorded (a frozen body
+in training too); a body that trains, f32, the CPU and NCHW maps keep
+the modules' ops (`frozen_bn.engages`).
 
 The CLI twins (``parq_torch/cli``) and the config tree
 (``parq_torch/config``) changed no kernel: `Trainer.fit` launches B1,
@@ -63,6 +69,7 @@ from .cross_attention import (flash_bwd, flash_bwd_kv,
                               flash_fwd_lse_kv)
 from .deform_conv import deform_columns
 from .dropout import draw_keep
+from .frozen_bn import frozen_bn_site
 from .heads import detection_heads
 from .lap import solve_lap
 from .pixel_align import (pixel_aligned_features_kernel, sample_views,
@@ -80,6 +87,7 @@ KERNELS = {
     "dropout_keep_mask": draw_keep,
     "detection_heads": detection_heads,
     "deform_conv": deform_columns,
+    "frozen_bn": frozen_bn_site,
 }
 SERVE_KERNELS = ("pixel_align_sample", "flash_cross_attention_fwd",
                  "detection_heads")
@@ -124,7 +132,7 @@ __all__ = ["GraphLaunches", "KERNELS", "SERVE_KERNELS", "deform_columns",
            "detection_heads", "draw_keep",
            "flash_bwd", "flash_bwd_kv",
            "flash_cross_attention_kv_fused", "flash_fwd_lse",
-           "flash_fwd_lse_kv",
+           "flash_fwd_lse_kv", "frozen_bn_site",
            "launch_counts", "pixel_aligned_features_kernel",
            "reset_launch_counts", "sample_views", "sample_views_bwd_mem",
            "solve_lap"]

@@ -46,6 +46,7 @@ LIBRARIES = {
     "dropout": ("dropout",),
     "heads": ("heads",),
     "deform_conv": ("deform_conv",),
+    "frozen_bn": ("frozen_bn",),
 }
 SOURCES = tuple(LIBRARIES)
 CSRC = Path(__file__).resolve().parents[1] / "csrc"

@@ -22,6 +22,12 @@ PETR's R50-DCN backbone (`models/petr.py`): ``style="caffe"`` puts a
 block's stride on its 1x1 conv1 (pytorch style, the default, on its 3x3
 conv2), and `dcn_stages` makes conv2 of every block of the chosen stages
 an `ops.ModulatedDeformConv2d`. The defaults build the release backbone.
+
+Every BN site of the body goes through `kernels.frozen_bn.frozen_bn_site`:
+the BN and the ReLU after it, at a block's end with the residual add (and
+the downsample's BN) between them, in one launch where its dispatch rule
+takes the call (bf16 channels-last maps on the card, no gradient), and as
+the modules' own ops, with the same bits, everywhere else.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels.frozen_bn import frozen_bn_site
 from ..ops.deform_conv import ModulatedDeformConv2d
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -70,6 +77,16 @@ def _conv(cin, cout, k, stride=1):
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
 
 
+def _shortcut(block: nn.Module, x: torch.Tensor):
+    """(residual, its FrozenBatchNorm2d or None) of a block's last BN
+    site: the block's input, or the downsample conv's raw output, whose BN
+    `frozen_bn_site` applies in the same pass."""
+    if block.downsample is None:
+        return x, None
+    conv, bn = block.downsample
+    return conv(x), bn
+
+
 class Bottleneck(nn.Module):
     """1x1, 3x3, 1x1 with the stride on the 3x3 (`caffe`: on the first
     1x1); `dcn`: the 3x3 is a DCNv2, which takes stride 1 only."""
@@ -95,11 +112,10 @@ class Bottleneck(nn.Module):
             FrozenBatchNorm2d(width * 4)) if downsample else None
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        idt = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + idt)
+        out = frozen_bn_site(self.conv1(x), self.bn1)
+        out = frozen_bn_site(self.conv2(out), self.bn2)
+        return frozen_bn_site(self.conv3(out), self.bn3,
+                              *_shortcut(self, x))
 
 
 class BasicBlock(nn.Module):
@@ -116,10 +132,9 @@ class BasicBlock(nn.Module):
             FrozenBatchNorm2d(width)) if downsample else None
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        idt = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + idt)
+        out = frozen_bn_site(self.conv1(x), self.bn1)
+        return frozen_bn_site(self.conv2(out), self.bn2,
+                              *_shortcut(self, x))
 
 
 class ResNetBody(nn.Module):
@@ -158,7 +173,7 @@ class ResNetBody(nn.Module):
             width *= 2
 
     def forward(self, x) -> List[torch.Tensor]:
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = frozen_bn_site(self.conv1(x), self.bn1)
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         feats = []
         for i in range(1, 5):

@@ -801,6 +801,7 @@ def test_graphed_forward_replays_the_eager_forward(gen):
         counts = launch_counts()
         assert counts["pixel_align_sample"] == cfg.dec_layers
         assert counts["flash_cross_attention_fwd"] == cfg.dec_layers
+        assert counts["frozen_bn"] == _bn_sites(model)
         for x in xs:
             got, want = fwd(x), model(x)
             for k, v in want.items():
@@ -917,7 +918,8 @@ def test_graphed_forward_runs_the_heads_kernels(gen, monkeypatch):
 
 def test_graphed_bf16_train_step_keeps_the_per_head_path(gen):
     """A captured bf16 train step at widths the heads kernels take runs the
-    per-head path: its replay adds no heads call."""
+    per-head path and the body's modules: its replay adds no heads call
+    and no frozen-BN launch."""
     from parq_torch.data.synthetic import make_batch, to_device
     from parq_torch.kernels import launch_counts, reset_launch_counts
     from parq_torch.models import build_model
@@ -937,6 +939,7 @@ def test_graphed_bf16_train_step_keeps_the_per_head_path(gen):
     counts = launch_counts()
     assert counts["flash_cross_attention_bwd"] == 2
     assert counts["detection_heads"] == 0
+    assert counts["frozen_bn"] == 0
 
 
 @pytest.mark.parametrize("path", [{}, {"remat": True},
@@ -1247,7 +1250,8 @@ def test_deform_conv_kernel_matches_plain(gen, shape, dtype):
 def test_graphed_petr_replays_the_eager_forward(gen):
     """PETR at its published widths, bf16: a replay equals the eager
     forward bit for bit, and launches the DCN kernel 9 times (one a DCN
-    block, the six cameras batched)."""
+    block, the six cameras batched) and the frozen-BN pass 49 times (one
+    a BN site of the ResNet-50 body but the downsamples')."""
     from parq_torch.config import PETRConfig
     from parq_torch.graphs import Graphed
     from parq_torch.kernels import launch_counts, reset_launch_counts
@@ -1270,8 +1274,151 @@ def test_graphed_petr_replays_the_eager_forward(gen):
         reset_launch_counts()
         got = [fwd(x) for x in xs]
         assert launch_counts()["deform_conv"] == 2 * 9
+        assert launch_counts()["frozen_bn"] == 2 * 49 == 2 * _bn_sites(model)
         for x, g in zip(xs, got):
             want = model(x)
             for k, v in want.items():
                 assert torch.isfinite(v).all(), k
                 assert torch.equal(g[k], v), k
+
+
+# ---- the frozen-BN pass of the ResNet body --------------------------------
+
+def _bn_sites(model):
+    """The BN sites a forward of `model`'s ResNet body launches the
+    frozen-BN pass for: every FrozenBatchNorm2d but the downsamples',
+    which ride on their block's last site."""
+    from parq_torch.models.resnet_fpn import FrozenBatchNorm2d
+    return sum(isinstance(m, FrozenBatchNorm2d)
+               and ".downsample." not in f".{n}."
+               for n, m in model.named_modules())
+
+
+def _random_bn(gen, C, eps=1e-5):
+    """A FrozenBatchNorm2d off identity: signed scales and shifts, means,
+    variances over eight decades."""
+    from parq_torch.models.resnet_fpn import FrozenBatchNorm2d
+    bn = FrozenBatchNorm2d(C, eps).cuda()
+    for b in (bn.weight, bn.bias, bn.running_mean):
+        b.copy_(torch.randn(C, device="cuda", generator=gen))
+    bn.running_var.copy_(10 ** (8 * torch.rand(C, device="cuda",
+                                               generator=gen) - 4))
+    return bn
+
+
+def _bn_map(gen, shape, layout):
+    """A bf16 map with NaN, ±Inf, ±0 in it: channels-last, or as the DCN
+    returns its output (an (N·H·W, C) matrix viewed NCHW)."""
+    N, C, H, W = shape
+    x = torch.randn(N, H, W, C, device="cuda", generator=gen) * 3
+    x.view(-1)[:5] = torch.tensor([float("nan"), float("inf"),
+                                   -float("inf"), 0.0, -0.0])
+    x = x.to(torch.bfloat16)
+    if layout == "dcn":
+        return x.reshape(N * H * W, C).view(N, H, W, C).permute(0, 3, 1, 2)
+    return x.permute(0, 3, 1, 2)          # channels-last memory
+
+
+def _bits16(t):
+    return t.contiguous().view(torch.int16)
+
+
+@pytest.mark.parametrize("form", ["relu", "identity", "downsample"])
+@pytest.mark.parametrize("shape", [(6, 64, 32, 88), (3, 2048, 8, 10),
+                                   (2, 72, 7, 9), (1, 8, 1, 3)],
+                         ids=["petr_stem_cut", "release_c5", "c72",
+                              "one_vector"])
+@pytest.mark.parametrize("layout", ["channels_last", "dcn"])
+def test_frozen_bn_kernel_matches_the_modules(gen, form, shape, layout):
+    """The kernel against the modules' ops on the card (the plain version),
+    bit for bit, NaN and infinities included; two launches equal."""
+    from parq_torch.kernels.frozen_bn import (engages, frozen_bn_site,
+                                              frozen_bn_site_plain)
+    C = shape[1]
+    x, r = _bn_map(gen, shape, layout), _bn_map(gen, shape, layout)
+    bn, bn_d = _random_bn(gen, C), _random_bn(gen, C)
+    args = {"relu": (), "identity": (r,), "downsample": (r, bn_d)}[form]
+    assert engages(x, *args[:1])
+    before = frozen_bn_site.launches
+    with torch.inference_mode():
+        got = frozen_bn_site(x, bn, *args)
+        torch.cuda.synchronize()
+        assert frozen_bn_site.launches == before + 1
+        want = frozen_bn_site_plain(x, bn, *args)
+        again = frozen_bn_site(x, bn, *args)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(_bits16(got), _bits16(want))
+    assert torch.equal(_bits16(again), _bits16(got))
+
+
+@pytest.mark.parametrize("eps", [1e-5, 0.0])
+def test_frozen_bn_scale_and_shift_are_the_modules(gen, eps):
+    """s = bf16(w · rsqrt(var + eps)) and t = bf16(bias − mean · inv) as
+    the kernel derives them (rsqrtf in its prologue) against the module's
+    torch ops, bit for bit, over 2^20 channels whose variances are random
+    positive f32 bit patterns (subnormals to 3.4e38): x = 1 with bias and
+    mean 0 writes s, x = 0 writes t (w, bias ≥ 0 and mean ≤ 0, so that
+    the ReLU passes both)."""
+    from parq_torch.kernels.frozen_bn import frozen_bn_site
+    C = 1 << 20
+    bn = _random_bn(gen, C, eps)
+    bn.weight.abs_()
+    bn.bias.abs_()
+    bn.running_mean.abs_().neg_()
+    bits = torch.randint(1, 0x7F800000, (C,), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    bn.running_var.copy_(bits.view(torch.float32))
+    inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    shift = bn.bias - bn.running_mean * inv
+    one = torch.ones(1, C, 1, 1, device="cuda", dtype=torch.bfloat16)
+    with torch.inference_mode():
+        t = frozen_bn_site(torch.zeros_like(one), bn)
+        bn.bias.zero_()
+        bn.running_mean.zero_()
+        s = frozen_bn_site(one, bn)
+    assert torch.equal(_bits16(s.view(C)), _bits16(inv.to(torch.bfloat16)))
+    keep = shift.to(torch.bfloat16) != 0       # 0 · s + 0 may be −0
+    assert torch.equal(_bits16(t.view(C))[keep],
+                       _bits16(shift.to(torch.bfloat16))[keep])
+
+
+@pytest.mark.parametrize("name,style,dcn", [
+    ("resnet50", "pytorch", (False,) * 4),
+    ("resnet50", "caffe", (False, False, True, True)),
+    ("resnet18", "pytorch", (False,) * 4)],
+    ids=["resnet50", "resnet50_caffe_dcn", "resnet18"])
+def test_frozen_bn_body_equals_the_modules(gen, monkeypatch, name, style,
+                                           dcn):
+    """A ResNet body in bf16 (autocast, channels-last, random BN buffers):
+    one launch a BN site but the downsamples', the outputs bit for bit
+    those of the modules' ops; under grad with trainable weights (a body
+    without DCN: the DCN kernel has no backward), no launch."""
+    import importlib
+    fbn = importlib.import_module("parq_torch.kernels.frozen_bn")
+    from parq_torch.models.resnet_fpn import (FrozenBatchNorm2d,
+                                              ResNetBody)
+    body = ResNetBody(name, style, dcn).cuda()
+    for m in body.modules():
+        if isinstance(m, FrozenBatchNorm2d):
+            rand = _random_bn(gen, m.weight.numel())
+            m.load_state_dict(rand.state_dict())
+    x = torch.rand(6, 3, 128, 352, device="cuda", generator=gen)
+    x = x.contiguous(memory_format=torch.channels_last)
+    auto = torch.autocast("cuda", dtype=torch.bfloat16)
+    before = fbn.frozen_bn_site.launches
+    with torch.inference_mode(), auto:
+        got = body(x)
+    assert fbn.frozen_bn_site.launches - before == _bn_sites(body) == (
+        49 if name == "resnet50" else 17)
+    monkeypatch.setattr(fbn, "engages", lambda *a: False)
+    with torch.inference_mode(), auto:
+        want = body(x)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(_bits16(g), _bits16(w))
+    monkeypatch.undo()
+    if not any(dcn):
+        before = fbn.frozen_bn_site.launches
+        with auto:
+            body(x[:1])
+        assert fbn.frozen_bn_site.launches == before
