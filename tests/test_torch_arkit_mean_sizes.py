@@ -16,6 +16,8 @@ from test_mean_size_table import _fake_arkit_scene
 from parq_torch.data.arkitscenes import ARKIT_CLASSES
 from parq_torch.models.box_processor import load_mean_size_table
 
+import torch_common  # noqa: F401
+
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 

@@ -38,6 +38,8 @@ from parq_torch.io.from_jax import state_dict_from_flax
 from parq_torch.models import BATCH_KEYS, PARQModel
 from parq_torch.train.train_step import LossConfig, forward_and_loss
 
+from torch_common import jax_forward, jax_init
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
 # the tiny model's conv rounding through the ResNet and 2 iterations (as
@@ -221,9 +223,8 @@ def jax_init_variables(seed=0):
     jcfg, _ = smoke_cfgs()
     jmodel = JPARQModel.from_config(jcfg)
     batch = make_batch([0], image_size=tuple(jmodel.image_size))
-    variables = jax.jit(jmodel.init)(
-        jax.random.PRNGKey(seed), {k: jnp.asarray(batch[k])
-                                   for k in BATCH_KEYS})
+    variables = jax_init(jmodel, jax.random.PRNGKey(seed),
+                         {k: jnp.asarray(batch[k]) for k in BATCH_KEYS})
     variables = jax.tree_util.tree_map(np.asarray, variables)
     rng = np.random.RandomState(seed + 1)
     variables["frozen"] = jax.tree_util.tree_map(
@@ -252,8 +253,7 @@ def test_from_cfg_forward_equals_jax(layer, freeze):
             "MODEL.BACKBONE2D.FREEZE", str(freeze))
     jcfg, cfg = smoke_cfgs(*opts)
     port, jmodel, variables, batch = port_from_jax_init(jcfg, cfg)
-    want = jax.jit(lambda v, b: jmodel.apply(v, b, deterministic=True))(
-        variables, {k: jnp.asarray(batch[k]) for k in BATCH_KEYS})
+    want = jax_forward(jmodel, variables, batch)
     with torch.no_grad():
         got = port(to_device(batch, BATCH_KEYS, "cpu"))
     assert sorted(got) == sorted(want)

@@ -23,6 +23,8 @@ from parq_torch.kernels.pixel_align import (sample_views_bwd_mem_plain,
                                             sample_views_plain,
                                             sample_views_sums)
 
+import torch_common  # noqa: F401
+
 pytestmark = pytest.mark.cuda
 
 

@@ -28,21 +28,7 @@ from parq_torch.data import (DemoDataset, ScanNetDataset, SnippetLoader,
 from parq_torch.data.arkitscenes import ARKitScenesDataset
 from parq_torch.parallel import host_shard_indices
 
-
-def rand_pose(rng):
-    f = rng.randn(3) + np.array([1.0, 1.0, 0.2])
-    f /= np.linalg.norm(f)
-    x = np.cross([0.0, 0.0, 1.0], f)
-    x /= np.linalg.norm(x)
-    T = np.eye(4)
-    T[:3, :3] = np.stack([x, np.cross(f, x), f], axis=1)
-    T[:3, 3] = rng.randn(3)
-    return T
-
-
-def save_jpg(rng, path, size=(64, 48)):
-    Image.fromarray((rng.rand(size[1], size[0], 3) * 255)
-                    .astype(np.uint8)).save(path)
+from torch_common import rand_pose, save_jpg
 
 
 @pytest.fixture(scope="module")

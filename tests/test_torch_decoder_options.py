@@ -21,6 +21,7 @@ unshared model, and TPU.DEBUG_NANS.
   under jax_debug_nans; a NaN made by a backward raises it too.
 """
 import argparse
+import functools
 import os
 
 import jax
@@ -45,7 +46,7 @@ from parq_torch.models.decoder import PARQDecoder
 from parq_torch.train.checkpoint import load_pretrained
 from parq_torch.train.loop import Trainer, to_device_batch
 
-from test_torch_model import jax_tiny_model
+from torch_common import jax_init, jax_tiny_model
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, T, Hm, Wm, C = 2, 2, 4, 8, 32
@@ -97,11 +98,15 @@ def loss_of(out):
                else out[k].float().square().mean() for k in LOSS_KEYS)
 
 
-def jax_grads(jdec, params, arrs):
-    def f(p):
-        return loss_of(jdec.apply({"params": p}, *jax_args(arrs),
-                                  deterministic=False))
-    return jax.jit(jax.grad(f))(params)
+@functools.partial(jax.jit, static_argnums=0)
+def jax_init_decoder(jdec, *args):
+    return jdec.init(jax.random.PRNGKey(0), *args, deterministic=True)
+
+
+@functools.partial(jax.jit, static_argnums=0)
+def jax_grads(jdec, params, *args):
+    return jax.grad(lambda p: loss_of(jdec.apply(
+        {"params": p}, *args, deterministic=False)))(params)
 
 
 def port_grads(dec, arrs, generator=None):
@@ -127,9 +132,7 @@ def test_options_match_jax(share_weights, remat):
     L = 3
     arrs = scene()
     jdec = jax_decoder(L, share_weights, remat)
-    params = jax.jit(lambda *a: jdec.init(jax.random.PRNGKey(0), *a,
-                                          deterministic=True))(
-        *jax_args(arrs))["params"]
+    params = jax_init_decoder(jdec, *jax_args(arrs))["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
     assert (("iteration" in params) == share_weights
             and ("iteration_2" in params) != share_weights)
@@ -148,7 +151,7 @@ def test_options_match_jax(share_weights, remat):
                                    np.asarray(want[k], np.float32),
                                    atol=2e-4, rtol=2e-4, err_msg=k)
 
-    jg = jax_grads(jdec, params, arrs)
+    jg = jax_grads(jdec, params, *jax_args(arrs))
     want_g = decoder_state_dict_from_flax(
         jax.tree_util.tree_map(np.asarray, jg))
     assert_grads_close(port_grads(dec.train(), arrs), want_g)
@@ -247,9 +250,8 @@ def test_unshared_checkpoint_loads(tmp_path):
     cfg = _tiny()
     jmodel = jax_tiny_model(cfg).clone(dec_layers=3, share_weights=False)
     raw = make_batch([0], image_size=cfg.image_size)
-    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
-                                     {k: jnp.asarray(raw[k])
-                                      for k in BATCH_KEYS})
+    variables = jax_init(jmodel, jax.random.PRNGKey(0),
+                         {k: jnp.asarray(raw[k]) for k in BATCH_KEYS})
     state = TrainState(step=0, params=variables["params"],
                        frozen=variables["frozen"], opt_state=None,
                        tx=optax.identity(), apply_fn=jmodel.apply)

@@ -52,6 +52,8 @@ from parq_torch.losses import parse_targets
 from parq_torch.models import BATCH_KEYS
 from parq_torch.train import loop
 
+from torch_common import jax_forward, jax_init
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROTX90 = np.array([[1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]])
 TRACK_SCALE = (-1.5, 1.5, -2.0, 1.0, 0.0, 2.0)
@@ -233,7 +235,6 @@ def jax_eval(jcfg, variables, dataset, batch_size, conf_thresh=None):
     """JAX's eval path: per-batch host outputs, and (with `conf_thresh`)
     the F1 calculator after the stream."""
     jmodel = JPARQModel.from_config(jcfg)
-    apply = jax.jit(lambda v, b: jmodel.apply(v, b, deterministic=True))
     dec = jcfg.MODEL.DECODER
     calc = JF1Calculator(conf_thresh or 0.5, num_semcls=dec.NUM_SEMCLS)
     hosts = []
@@ -241,7 +242,7 @@ def jax_eval(jcfg, variables, dataset, batch_size, conf_thresh=None):
         items = [dataset[i] for i in range(start, start + batch_size)]
         batch = {k: jnp.asarray(np.stack([it[k] for it in items]))
                  for k in BATCH_KEYS + ("obbs_padded", "sym")}
-        out = apply(variables, {k: batch[k] for k in BATCH_KEYS})
+        out = jax_forward(jmodel, variables, batch)
         dev = j_parse_device({k: v[-1] for k, v in out.items()},
                              batch["T_world_local"], tuple(dec.TRACK_SCALE))
         host = j_finish(dev, dec.NUM_SEMCLS,
@@ -272,7 +273,7 @@ def test_eval_cli_equals_jax_eval_path(tmp_path, monkeypatch):
     jmodel = JPARQModel.from_config(jcfg)
     example = {k: jnp.asarray(dataset[0][k])[None] for k in BATCH_KEYS}
     variables = jax.tree_util.tree_map(
-        np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(3), example))
+        np.asarray, jax_init(jmodel, jax.random.PRNGKey(3), example))
     rng = np.random.RandomState(4)
     variables["frozen"] = jax.tree_util.tree_map(
         lambda a: rng.rand(*a.shape).astype(np.float32) + 0.5,

@@ -28,6 +28,8 @@ from parq_torch.export import (export_forward, load_artifact, load_model,
 from parq_torch.io.from_jax import state_dict_from_flax
 from parq_torch.models import BATCH_KEYS
 
+import torch_common  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(ROOT, "configs", "smoke.yaml")
 BATCH = 2

@@ -22,6 +22,8 @@ from parq_torch.kernels.frozen_bn import (engages, frozen_bn_site,
 from parq_torch.models.resnet_fpn import (BasicBlock, Bottleneck,
                                           FrozenBatchNorm2d, ResNetBody)
 
+import torch_common  # noqa: F401
+
 CL = torch.channels_last
 LAYOUTS = ("contiguous", "channels_last", "dcn")
 

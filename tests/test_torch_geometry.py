@@ -16,6 +16,8 @@ from parq_torch.evals.parse_pred import parse_pred_device as t_parse_device
 from parq_torch.ops.grid_sample import grid_sample_bilinear as t_grid_sample
 from parq_torch.ops.posemb import pos2posemb3d as t_posemb
 
+import torch_common  # noqa: F401
+
 ATOL = 1e-5
 
 

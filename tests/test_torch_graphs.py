@@ -38,6 +38,8 @@ from parq_torch.train.train_step import (eval_step, make_graphed_eval_step,
                                          make_graphed_train_step,
                                          make_optimizer, set_lr, train_step)
 
+import torch_common  # noqa: F401
+
 RATE = 0.1
 
 

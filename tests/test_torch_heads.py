@@ -24,6 +24,8 @@ from parq_torch.models import decoder as decoder_mod
 from parq_torch.models.decoder import DecoderLayer, _MLPHeads
 from parq_torch.train.__main__ import TRAIN_KEYS
 
+import torch_common  # noqa: F401
+
 
 def _model(share):
     cfg = ModelConfig.tiny(compute_dtype="bfloat16", share_weights=share)

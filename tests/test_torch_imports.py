@@ -14,6 +14,8 @@ from pathlib import Path
 
 import pytest
 
+import torch_common  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "parq_tpu"}
 PORT_FILES = sorted((ROOT / "parq_torch").rglob("*.py")) + [

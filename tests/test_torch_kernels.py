@@ -26,6 +26,8 @@ from parq_torch.kernels.pixel_align import (project_uvs, sample_views_plain,
                                             sample_views_sums)
 from parq_torch.ops.pixel_align import pixel_aligned_features
 
+import torch_common  # noqa: F401
+
 ATOL = 1e-5
 
 

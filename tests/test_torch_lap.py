@@ -34,6 +34,8 @@ from parq_torch.kernels.lap import solve_lap, solve_lap_plain
 from parq_torch.ops import hungarian
 from parq_torch.ops.hungarian import match_batch
 
+import torch_common  # noqa: F401
+
 _j_batched = jax.jit(jax.vmap(j_solve_lap))
 
 

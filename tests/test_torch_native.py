@@ -28,6 +28,8 @@ from parq_torch.evals import F1Calculator, iou3d, to_odam
 from parq_torch.evals.iou3d import ROTX90
 from parq_torch.evals.nms import greedy_nms
 
+import torch_common  # noqa: F401
+
 
 def roty(a):
     c, s = np.cos(a), np.sin(a)

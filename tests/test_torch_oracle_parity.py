@@ -34,6 +34,8 @@ from parq_torch.config import ModelConfig
 from parq_torch.models import PARQModel
 from parq_torch.train.checkpoint import DEAD_PREFIX
 
+import torch_common  # noqa: F401
+
 D, HEADS, FFN, L, Q, NCLS = 1024, 4, 768, 2, 16, 9
 B, T, H0, W0 = 1, 2, 48, 64
 H, W = H0 // 4, W0 // 4

@@ -45,6 +45,8 @@ from parq_torch.parallel.seq_parallel import local_seed
 from parq_torch.train.loop import make_trainer_mesh
 from parq_torch.train.train_step import make_optimizer, train_step
 
+import torch_common  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, H, Q, D = 2, 2, 16, 64
 SEEDS = [1234577, 2 ** 31 - 5]

@@ -42,6 +42,8 @@ from parq_torch.models.petr import PETRModel, sine_encoding_3d
 from parq_torch.models.resnet_fpn import Bottleneck, ResNetBody
 from parq_torch.ops import ModulatedDeformConv2d
 
+import torch_common  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 CELL = "eval-petr-r50dcn-b1"

@@ -34,6 +34,8 @@ from parq_torch.tools.scannet_preprocessing import (
     generate_scannet_anno_snippet as PGEN, image_io,
     parse_scan2cad as PPARSE, processing_utils as PPU)
 
+import torch_common  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "parq_torch" / "tools" / "scannet_preprocessing"
 SCENES = ("scene0000_00", "scene0001_00")

@@ -45,6 +45,8 @@ from parq_torch.train import loop
 from parq_torch.train.checkpoint import load_pretrained
 from parq_torch.tools.release_ckpt import synthesize_release_checkpoint
 
+import torch_common  # noqa: F401
+
 D, HEADS, FFN, NCLS, B, T = 1024, 4, 768, 9, 1, 3
 SCALE = (-3.0, 3.0, -2.0, 0.5, 0.25, 5.25)
 MEAN_SIZE = tuple(tuple(float(v) for v in row)

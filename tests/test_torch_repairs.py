@@ -26,6 +26,8 @@ from parq_torch.models import build_model
 from parq_torch.models.resnet_fpn import _resize
 from parq_torch.train.train_step import make_optimizer, train_step
 
+import torch_common  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -15,7 +15,6 @@ import threading
 import urllib.error
 import urllib.request
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,8 +23,6 @@ import torch
 from parq_tpu.config import get_cfg as j_get_cfg
 from parq_tpu.config import update_config as j_update_config
 from parq_tpu.evals.parse_pred import parse_pred as j_parse_pred
-from parq_tpu.io.torch_convert import convert_parq_checkpoint
-from parq_tpu.train.checkpoint import _merge
 
 from parq_torch.config import ModelConfig, ServeConfig, get_cfg, update_config
 from parq_torch.data.synthetic import make_batch
@@ -33,8 +30,8 @@ from parq_torch.export import export_forward
 from parq_torch.models import BATCH_KEYS, build_model
 from parq_torch.serve import Engine, build_server
 
-from test_torch_model import (jax_forward, jax_tiny_model, numpy_state_dict,
-                              randomize_frozen_bn)
+from torch_common import (jax_forward, jax_tiny_model, jax_variables,
+                          randomize_frozen_bn)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -82,13 +79,7 @@ def _jax_detections(engine, request):
     """JAX model + JAX parse_pred on the padded request, same weights."""
     jmodel = jax_tiny_model(CFG.model)
     padded = {k: np.concatenate([request[k]] * BATCH) for k in BATCH_KEYS}
-    init = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
-                                {k: jnp.asarray(padded[k])
-                                 for k in BATCH_KEYS})
-    tree = convert_parq_checkpoint(numpy_state_dict(engine.model),
-                                   num_heads=CFG.model.dec_heads)
-    variables = {"params": _merge(init["params"], tree["params"]),
-                 "frozen": _merge(init["frozen"], tree["frozen"])}
+    variables = jax_variables(jmodel, engine.model, padded)
     out = jax_forward(jmodel, variables, padded)
     last = {k: v[-1] for k, v in out.items()}
     host = j_parse_pred(last, jnp.asarray(padded["T_world_local"]),

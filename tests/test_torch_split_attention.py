@@ -27,6 +27,8 @@ from parq_tpu.kernels import cross_attention_pallas as jca
 
 from parq_torch.kernels import cross_attention as ca
 
+import torch_common  # noqa: F401
+
 B, H, Q, D = 2, 2, 16, 64
 RATE = 0.3
 SEEDS = [123457, 98765]          # 2 seed groups of Q/2 rows

@@ -22,6 +22,8 @@ from parq_torch.kernels.cross_attention import (
     cross_attention_kv_fused_train_plain, dq_splits, kv_splits,
     split_bounds)
 
+import torch_common  # noqa: F401
+
 B, H, Q, N, D = 2, 2, 16, 500, 64   # 8 blocks of 64 tokens, the last 52
 SEEDS = [31, 97]                     # 2 seed groups of 8 rows
 

@@ -19,6 +19,8 @@ from parq_torch.kernels import (KERNELS, GraphLaunches, launch_counts,
                                 reset_launch_counts)
 from parq_torch.telemetry import Recorder
 
+import torch_common  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

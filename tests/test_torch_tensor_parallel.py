@@ -55,8 +55,9 @@ from parq_torch.train.checkpoint import (CheckpointManager, load_pretrained,
                                          restore_state)
 from parq_torch.train.train_step import make_optimizer, train_step
 from parq_torch.train.__main__ import TRAIN_KEYS
-from test_torch_model import (jax_tiny_model, numpy_state_dict,
-                              randomize_frozen_bn)
+
+from torch_common import (jax_tiny_model, numpy_state_dict,
+                          randomize_frozen_bn)
 
 B = 4          # the rows of the JAX (4, 2) mesh's data axis
 LR_JAX = 1e-4

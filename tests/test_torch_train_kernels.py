@@ -34,6 +34,8 @@ from parq_torch.kernels.cross_attention import (
     flash_cross_attention_kv_fused_train, keep_mask)
 from parq_torch.kernels.pixel_align import _sampler_backward
 
+import torch_common  # noqa: F401
+
 
 def _unit_v_inputs(rng, B, H, Q, N, D):
     """Logits near 0 and V rows e_n (N ≤ D): o[.., q, n] is

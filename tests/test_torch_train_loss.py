@@ -29,6 +29,8 @@ from parq_torch.losses import parse_targets, set_loss
 from parq_torch.ops.hungarian import match_batch
 from parq_torch.train import build_lr_schedule, cosine_warmup_restarts
 
+import torch_common  # noqa: F401
+
 
 def jax_uniforms(key, n, Q, K):
     """The (n, Q, K) draws of JAX's match_batch for one key."""

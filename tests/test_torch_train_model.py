@@ -25,7 +25,6 @@ from parq_tpu.models.decoder import DecoderLayer as JDecoderLayer
 from parq_tpu.train import LossConfig as JLossConfig
 from parq_tpu.train import forward_and_loss as j_forward_and_loss
 from parq_tpu.train import make_optimizer as j_make_optimizer
-from parq_tpu.train.checkpoint import _merge
 
 from parq_torch.config import ModelConfig
 from parq_torch.data.synthetic import make_batch, to_device
@@ -34,8 +33,9 @@ from parq_torch.kernels.cross_attention import split_kv
 from parq_torch.models import BATCH_KEYS, build_model
 from parq_torch.train import eval_step, make_optimizer, train_step
 from parq_torch.train.__main__ import TRAIN_KEYS, main as train_main
-from test_torch_model import (jax_tiny_model, numpy_state_dict,
-                              randomize_frozen_bn)
+
+from torch_common import (jax_tiny_model, jax_variables, numpy_state_dict,
+                          randomize_frozen_bn)
 
 
 def _grads_of(model):
@@ -116,11 +116,9 @@ def _jax_and_port(lr):
     jmodel = jax_tiny_model(cfg).clone(dropout_rate=0.0)
     raw = make_batch([0, 1], image_size=cfg.image_size)
     jbatch = {k: jnp.asarray(raw[k]) for k in TRAIN_KEYS}
-    init = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jbatch)
-    tree = convert_parq_checkpoint(numpy_state_dict(port), num_heads=4)
-    params = _merge(init["params"], tree["params"])
-    frozen = _merge(init["frozen"], tree["frozen"])
-    return port, jmodel, params, frozen, raw, jbatch
+    variables = jax_variables(jmodel, port, raw)
+    return (port, jmodel, variables["params"], variables["frozen"], raw,
+            jbatch)
 
 
 def test_train_step_matches_jax():

@@ -25,7 +25,6 @@ import json
 import os
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -51,6 +50,8 @@ from parq_torch.train.schedule import lr_schedule_from_cfg
 from parq_torch.train.train_step import (clip_by_global_norm_,
                                          forward_and_loss, make_optimizer,
                                          train_step)
+
+from torch_common import jax_forward
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(ROOT, "configs", "smoke.yaml")
@@ -199,8 +200,7 @@ def test_torchvision_warm_start_equals_jax(tmp_path):
     variables = {"params": _merge(base["params"], warm["params"]),
                  "frozen": _merge(base["frozen"], warm["frozen"])}
     batch = make_batch([0, 1], image_size=mcfg.image_size)
-    want = jax.jit(lambda v, b: jmodel.apply(v, b, deterministic=True))(
-        variables, {k: jnp.asarray(batch[k]) for k in BATCH_KEYS})
+    want = jax_forward(jmodel, variables, batch)
     with torch.no_grad():
         got = port(to_device(batch, BATCH_KEYS, "cpu"))
     for k in want:

@@ -29,6 +29,8 @@ from parq_tpu.utils import vis as jvis
 from parq_torch.config import get_cfg, update_config
 from parq_torch.utils import vis
 
+from torch_common import rand_pose, save_jpg
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NUM_SEMCLS = 9
 W, H = 96, 72
@@ -261,7 +263,6 @@ def test_eval_twin_demo_writes_demo_vis(tmp_path, monkeypatch):
     tests/test_torch_data.py::test_demo_items_equal_jax): no ground truth,
     one overlay PNG a fragment in demo_vis/."""
     import pickle
-    from test_torch_data import rand_pose, save_jpg
     from parq_torch.cli import eval as cli_eval
     rng = np.random.RandomState(1)
     scene = "2023-03-03T19-23-25"
