@@ -240,7 +240,13 @@ Phases, each printed on its own line; any failure exits non-zero:
 The keep-mask kernel (csrc/dropout.cu, not a TPU kernel: the counterpart
 of the JAX decoder's `_grouped_keep`) is held against `keep_mask` bit for
 bit at every release mask shape, timed beside `torch.rand` + a compare,
-and has its row in the record. The Trainer, the bench twin,
+and has its row in the record. So does the NMS kernel (csrc/nms.cu, the
+counterpart of the JAX package's `nms_mask_device`: parse_pred's greedy
+NMS and the pack of its detections, `nms_rows`) at the eval shape (B=1,
+K=256): its pack equal to the plain version's and its keep mask to the
+host library's, bit for bit, timed beside the host route it replaced and
+`nms_mask_device` on the card; every phase that parses predictions counts
+one of its launches a parse. The Trainer, the bench twin,
 the serve Engine and the train entry replay CUDA graphs on the card: the
 launch counts of the phases that drive them come from the graphs' capture
 records, and a forward hook sees only an eager call and a capture.
@@ -1049,12 +1055,13 @@ def serve_requests(engine, requests, what="serve"):
 def check_serve_counts(counts, cfg, requests, what, body_sites=None):
     """Each serving kernel launched L times a request, the frozen-BN pass
     `body_sites` times (a bf16 ResNet-50 forward's `BODY_SITES` unless
-    given), nothing else."""
+    given), parse_pred's NMS once, nothing else."""
     from parq_torch.kernels import SERVE_KERNELS
     body_sites = BODY_SITES if body_sites is None else body_sites
     for name, n in counts.items():
         want = requests * (cfg.dec_layers if name in SERVE_KERNELS
-                           else body_sites if name == "frozen_bn" else 0)
+                           else body_sites if name == "frozen_bn"
+                           else 1 if name == "nms" else 0)
         check(n == want, f"{what}: {name}: {n} launches in {requests} "
               f"requests, want {want}")
 
@@ -2065,6 +2072,89 @@ def heads_row(cfg):
                 library_ms=None)
 
 
+def nms_rows(cfg, reps=50):
+    """The NMS kernel (`kernels/nms.py`: parse_pred's greedy NMS and the
+    pack of its detections, one launch) at the eval cell's shape (B=1,
+    K=256, classes 9 + background) on the device half's arrays of random
+    outputs: its pack equal to the plain version's and its pred_mask to
+    the host library's keep mask and valid, bit for bit; its device ms by
+    graph replay of `reps` launches, beside the plain version's ms (on the
+    CPU), the host route it replaced (the seven copies and `run_nms`, and
+    `run_nms` alone), its ms without the NMS (the pack alone) and
+    `nms_mask_device` on the card. Bound: one read of
+    the inputs and one write of the pack at the HBM rate (under 200 KB:
+    latency, not bytes, sets its time)."""
+    from parq_torch.config import ServeConfig
+    from parq_torch.evals import nms_mask_device, parse_pred_device
+    from parq_torch.evals.nms import run_nms
+    from parq_torch.kernels.nms import nms_pack, nms_pack_plain
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    B, K, ncls = 1, cfg.num_queries, cfg.num_semcls
+    logits = torch.randn(B, K, ncls + 1, device="cuda", generator=gen) * 2
+    last = {"size_unnormalized": torch.rand(B, K, 3, device="cuda",
+                                            generator=gen) + 0.3,
+            "center_unnormalized": torch.randn(B, K, 3, device="cuda",
+                                               generator=gen) * 0.8,
+            "sem_cls_prob": logits.softmax(-1),
+            "ortho6d": torch.randn(B, K, 6, device="cuda", generator=gen)}
+    Twl = torch.zeros(B, 12, device="cuda")
+    Twl[:, [0, 4, 8]] = 1.0
+    dev = parse_pred_device(last, Twl, ServeConfig(model=cfg).track_scale,
+                            False, ncls)
+    args = [dev[k] for k in ("obb_data", "corners_local", "corners_world",
+                             "scores", "sem_cls_prob", "labels", "valid")]
+    host = [t.cpu() for t in args]
+    got = nms_pack(*args, ncls, 0.1, False)
+    want = nms_pack_plain(*host, ncls, 0.1, False, True)
+    keep = run_nms(host[1].numpy(), host[5].numpy(), host[3].numpy(), ncls,
+                   0.1)
+    torch.cuda.synchronize()
+    check(torch.equal(got.cpu(), want), "nms: the kernel's pack differs "
+          "from the plain version's")
+    check(np.array_equal(got[..., -1].cpu().numpy() != 0,
+                         keep & host[6].numpy()),
+          "nms: pred_mask differs from run_nms's keep and valid")
+    ms = device_ms(lambda: nms_pack(*args, ncls, 0.1, False), reps)
+    pack_ms = device_ms(lambda: nms_pack(*args, ncls, 0.1, False, False),
+                        reps)
+    t = time.perf_counter()
+    for _ in range(3):
+        nms_pack_plain(*host, ncls, 0.1, False, True)
+    plain_ms = 1e3 * (time.perf_counter() - t) / 3
+
+    def host_route():
+        a = [x.cpu().numpy() for x in args]
+        return run_nms(a[1], a[5], a[3], ncls, 0.1)
+    host_route()
+    t = time.perf_counter()
+    for _ in range(reps):
+        host_route()
+    host_ms = 1e3 * (time.perf_counter() - t) / reps
+    t = time.perf_counter()
+    for _ in range(reps):
+        run_nms(host[1].numpy(), host[5].numpy(), host[3].numpy(), ncls, 0.1)
+    run_nms_ms = 1e3 * (time.perf_counter() - t) / reps
+    mask_ms = cuda_ms(lambda: nms_mask_device(
+        args[1][0], args[3][0], args[5][0], ncls, 0.1), 3)
+    nbytes = sum(x.numel() * x.element_size() for x in args) \
+        + got.numel() * 4
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    phase("kernels", f"nms B={B} K={K} ({int((host[5] != ncls).sum())} "
+          f"foreground, {int(keep.sum())} kept): {ms:.4f} ms a launch "
+          f"({reps} replayed; {pack_ms:.4f} without the NMS), bound "
+          f"{bound:.5f} ms ({nbytes} bytes), plain "
+          f"{plain_ms:.2f} ms (CPU); the host route it replaced: 7 copies + "
+          f"run_nms {host_ms:.4f} ms, run_nms alone {run_nms_ms:.4f} ms; "
+          f"nms_mask_device on the card {mask_ms:.3f} ms; pack and keep "
+          "equal bit for bit")
+    return dict(name="nms", route="cuda", source="parq_torch/csrc/nms.cu",
+                replaces="parq_tpu/evals/nms.py (nms_mask_device: plain "
+                "JAX, no pallas_call)", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                library_ms=None, pack_ms=pack_ms, host_route_ms=host_ms,
+                run_nms_ms=run_nms_ms, nms_mask_device_ms=mask_ms)
+
+
 PETR_DCN_SHAPES = {"stage3": (6, 256, 32, 88), "stage4": (6, 512, 16, 44)}
 PETR_DCN_BLOCKS = {"stage3": 6, "stage4": 3}     # ResNet-50's blocks there
 
@@ -2455,7 +2545,7 @@ NO_KERNELS = {"pixel_align_sample": 0, "flash_cross_attention_fwd": 0,
               "flash_cross_attention_fwd_train_split": 0,
               "flash_cross_attention_bwd_split": 0, "lap_solve": 0,
               "dropout_keep_mask": 0, "detection_heads": 0,
-              "deform_conv": 0, "frozen_bn": 0}
+              "deform_conv": 0, "frozen_bn": 0, "nms": 0}
 # the frozen-BN pass a bf16 ResNet-50 forward without gradient launches:
 # one a BN site of the body but the 4 downsamples' (the stem, 3 a block)
 BODY_SITES = 49
@@ -2466,9 +2556,10 @@ TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
                      flash_cross_attention_fwd_train=8,
                      flash_cross_attention_bwd=1, pixel_align_bwd_mem=1,
                      lap_solve=1, dropout_keep_mask=45)
+# a validation batch: its forward, the loss's matcher and parse_pred's NMS
 VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
                    flash_cross_attention_fwd=8, lap_solve=1,
-                   detection_heads=8, frozen_bn=BODY_SITES)
+                   detection_heads=8, frozen_bn=BODY_SITES, nms=1)
 # sequence-parallel: per rank, the split forms in training, the fused
 # forward with LSE (the merge needs it) in validation
 SP_TRAIN_KERNELS = dict(NO_KERNELS, pixel_align_sample=8,
@@ -2690,7 +2781,7 @@ SCALED_FOLD_KERNELS = dict(NO_KERNELS, pixel_align_sample=16,
                           flash_cross_attention_bwd=1,
                           pixel_align_bwd_mem=1, lap_solve=1,
                           dropout_keep_mask=85)
-# the bare eval forward; a validation batch adds M1 (the loss)
+# the bare eval forward; a validation batch adds M1 (the loss) and the NMS
 SCALED_VAL_KERNELS = dict(NO_KERNELS, pixel_align_sample=16,
                          flash_cross_attention_fwd=16, detection_heads=16,
                          frozen_bn=BODY_SITES)
@@ -3095,7 +3186,7 @@ def scaled_cli(smi_line):
           f"steps and {len(vals)} validations, want 2 and 1 + the final one")
     check_counts(steps, SCALED_REMAT_KERNELS, "scaled cli step")
     check_counts(vals, dict({k: 2 * n for k, n in SCALED_VAL_KERNELS.items()},
-                            lap_solve=2),
+                            lap_solve=2, nms=2),
                  "scaled cli validation (2 snippets)")
     check(all(d == torch.bfloat16 for seen in dtypes for d in seen),
           f"scaled cli: the decoder's memory came as {dtypes}")
@@ -4592,6 +4683,7 @@ def main():
         m1_rows[0]["launches"] = train_counts["lap_solve"]
         b2_eval_row = eval_b1_row(cfg)
         heads_eval_row = heads_row(cfg)
+        nms_eval_row = nms_rows(cfg)
         dcn_rows = deform_rows()
         dcn_launches, petr_tally = phase_petr(smi_line)
         check(dcn_launches == sum(PETR_DCN_BLOCKS.values()),
@@ -4616,6 +4708,7 @@ def main():
                          launches=eval_counts["flash_cross_attention_fwd"]))
         rows.append(dict(heads_eval_row,
                          launches=eval_counts["detection_heads"]))
+        rows.append(dict(nms_eval_row, launches=eval_counts["nms"]))
         phase_vis(smi_line)
         phase_serve_ckpt(ckpt)
         shutil.rmtree(CLI_DIR, ignore_errors=True)

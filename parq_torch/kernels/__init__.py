@@ -12,6 +12,7 @@
 | models/mlp.fused_detection_heads (XLA, no pallas_call) | heads.detection_heads (the four heads and the box decode) |
 | (none: the JAX package has no deformable convolution) | deform_conv.deform_columns (PETR's DCNv2 im2col) |
 | models/resnet_fpn (frozen BN, ReLU, adds: XLA fusions, no pallas_call) | frozen_bn.frozen_bn_site (a BN site of the ResNet body) |
+| evals/nms.nms_mask_device (plain JAX, no pallas_call) | nms.nms_pack (parse_pred's greedy NMS and the pack of its detections) |
 
 B2 and B3 in bf16 at the release head dim (256) are the Hopper kernels of
 ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (wgmma on TMA-fed
@@ -39,7 +40,12 @@ per-head modules (`heads.engages`). The frozen-BN kernel
 residual add and ReLU, in one pass over a channels-last bf16 map, bit for
 bit as the modules' ops wherever no gradient is recorded (a frozen body
 in training too); a body that trains, f32, the CPU and NCHW maps keep
-the modules' ops (`frozen_bn.engages`).
+the modules' ops (`frozen_bn.engages`). The NMS kernel
+(``csrc/nms.cu``) runs parse_pred's greedy 3D NMS on the card, one CTA a
+sample, in the host library's f64 arithmetic (its keep mask is
+`native.nms3d`'s bit for bit), while CTAs beside it pack the detections
+into one buffer, so that parse_pred's host half makes one copy; CPU
+tensors keep the host route.
 
 The CLI twins (``parq_torch/cli``) and the config tree
 (``parq_torch/config``) changed no kernel: `Trainer.fit` launches B1,
@@ -72,6 +78,7 @@ from .dropout import draw_keep
 from .frozen_bn import frozen_bn_site
 from .heads import detection_heads
 from .lap import solve_lap
+from .nms import nms_pack
 from .pixel_align import (pixel_aligned_features_kernel, sample_views,
                           sample_views_bwd_mem)
 
@@ -88,6 +95,7 @@ KERNELS = {
     "detection_heads": detection_heads,
     "deform_conv": deform_columns,
     "frozen_bn": frozen_bn_site,
+    "nms": nms_pack,
 }
 SERVE_KERNELS = ("pixel_align_sample", "flash_cross_attention_fwd",
                  "detection_heads")
@@ -133,6 +141,6 @@ __all__ = ["GraphLaunches", "KERNELS", "SERVE_KERNELS", "deform_columns",
            "flash_bwd", "flash_bwd_kv",
            "flash_cross_attention_kv_fused", "flash_fwd_lse",
            "flash_fwd_lse_kv", "frozen_bn_site",
-           "launch_counts", "pixel_aligned_features_kernel",
+           "launch_counts", "nms_pack", "pixel_aligned_features_kernel",
            "reset_launch_counts", "sample_views", "sample_views_bwd_mem",
            "solve_lap"]

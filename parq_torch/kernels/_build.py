@@ -47,6 +47,7 @@ LIBRARIES = {
     "heads": ("heads",),
     "deform_conv": ("deform_conv",),
     "frozen_bn": ("frozen_bn",),
+    "nms": ("nms",),
 }
 SOURCES = tuple(LIBRARIES)
 CSRC = Path(__file__).resolve().parents[1] / "csrc"

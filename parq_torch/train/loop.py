@@ -554,7 +554,7 @@ class Trainer:
                 last = {k: v[-1] for k, v in outputs.items()}
                 dev_parsed = parse_pred_device(
                     last, dev_batch["T_world_local"], tuple(dec.TRACK_SCALE),
-                    for_vis)
+                    for_vis, dec.NUM_SEMCLS, bool(dec.ENABLE_NMS))
                 targets = None
                 if "obbs_padded" in dev_batch:
                     targets = parse_targets(

@@ -8,6 +8,7 @@ inside the fixture, never at import). On a machine with one:
 (`--noconftest`: tests/conftest.py sets up JAX, which such a machine need
 not have; these tests import only torch and parq_torch.)
 """
+import numpy as np
 import pytest
 import torch
 
@@ -483,6 +484,130 @@ def test_nms_mask_device_on_card_equals_cpu(gen):
                                0.1, same)
         assert got.device.type == "cuda"
         assert torch.equal(got.cpu(), want)
+
+
+def _nms_args(case, gen, valid_share=1.0):
+    """The NMS kernel's arguments for an NMS case of torch_common, on the
+    CPU: the case's corners, scores and labels, random obb data, world
+    corners and class probabilities, and a valid flag."""
+    corners, scores, labels, ncls, thresh, same = case
+    B, K = scores.shape
+    g = torch.Generator().manual_seed(int(gen.initial_seed()) + B * K)
+    return ((torch.randn(B, K, 19, generator=g), torch.from_numpy(corners),
+             torch.from_numpy(corners) + 1.0, torch.from_numpy(scores),
+             torch.rand(B, K, ncls + 1, generator=g),
+             torch.from_numpy(labels),
+             torch.rand(B, K, generator=g) < valid_share),
+            (ncls, thresh, same))
+
+
+def _host_keep(case):
+    from parq_torch.evals.nms import run_nms
+    corners, scores, labels, ncls, thresh, same = case
+    return torch.from_numpy(run_nms(
+        corners, labels, scores, ncls, thresh,
+        "nms_3d_faster_samecls" if same else "nms_3d_faster"))
+
+
+def _check_nms_kernel(case, gen, plain=True):
+    """The kernel's pack on the card: pred_mask = the host library's keep
+    mask and valid, bit for bit; the whole pack equal to the plain
+    version's (when `plain`); one launch."""
+    from parq_torch.kernels.nms import nms_pack
+    args, opts = _nms_args(case, gen, valid_share=0.8)
+    before = nms_pack.launches
+    got = nms_pack(*(t.cuda() for t in args), *opts)
+    torch.cuda.synchronize()
+    assert nms_pack.launches == before + 1
+    keep = _host_keep(case)
+    assert torch.equal(got[..., -1].cpu() != 0, keep & args[-1])
+    every = nms_pack(*(t.cuda() for t in args[:-1]),
+                     torch.ones_like(args[-1]).cuda(), *opts)
+    assert torch.equal(every[..., -1].cpu() != 0, keep)
+    if plain:
+        assert torch.equal(got.cpu(), nms_pack(*args, *opts))
+    return keep
+
+
+@pytest.mark.parametrize("name", torch_common.NMS_EDGE_CASES)
+def test_nms_kernel_equals_nms3d_on_edges(gen, name):
+    _check_nms_kernel(torch_common.nms_edge_case(name), gen)
+
+
+@pytest.mark.parametrize("B, K", [(1, 256), (2, 256), (1, 16), (2, 1024)])
+def test_nms_kernel_equals_nms3d_and_plain(gen, B, K):
+    for same, thresh in ((False, 0.1), (True, 0.2)):
+        keep = _check_nms_kernel(torch_common.nms_cluster_case(
+            K + B, B, K, thresh, same), gen)
+        assert keep.any() and not keep.all()
+
+
+def test_nms_kernel_on_200_seeds_equals_nms3d_and_nms_mask_device(gen):
+    """K = 256, B = 1 on 200 seeds of overlapping clusters with tied
+    scores: the keep mask is native.nms3d's bit for bit, and
+    nms_mask_device's (f32, its IoU's denominator + 1e-12) wherever no
+    pair's f64 IoU lies within 1e-6 of the threshold."""
+    from parq_torch.evals import nms_mask_device
+    compared = 0
+    for seed in range(200):
+        case = torch_common.nms_cluster_case(1000 + seed)
+        keep = _check_nms_kernel(case, gen, plain=seed < 10)
+        corners, scores, labels, ncls, thresh, same = case
+        c = torch.from_numpy(corners[0]).cuda()
+        lo, hi = c.double().amin(1), c.double().amax(1)
+        inter = (torch.minimum(hi[:, None], hi[None])
+                 - torch.maximum(lo[:, None], lo[None])).clamp(min=0).prod(-1)
+        vol = (hi - lo).prod(-1)
+        iou = inter / (vol[:, None] + vol[None] - inter)
+        if bool(((iou - thresh).abs() < 1e-6).any()):
+            continue
+        compared += 1
+        dev = nms_mask_device(c, torch.from_numpy(scores[0]).cuda(),
+                              torch.from_numpy(labels[0]).cuda(), ncls,
+                              thresh, same)
+        assert torch.equal(dev.cpu(), keep[0]), seed
+    assert compared >= 150
+
+
+def test_nms_kernel_refuses_more_than_1024_boxes(gen):
+    from parq_torch.kernels.nms import nms_pack
+    args, opts = _nms_args(torch_common.nms_cluster_case(0, 1, 1025), gen)
+    with pytest.raises(ValueError, match="1 to 1024"):
+        nms_pack(*(t.cuda() for t in args), *opts)
+
+
+@pytest.mark.parametrize("for_vis, enable_nms",
+                         [(False, True), (True, True), (False, False)])
+def test_parse_pred_on_card_is_the_cpu_route(gen, for_vis, enable_nms):
+    """parse_pred's device half on the card, then its host half there (one
+    copy of the kernel's pack) and on the CPU (the same device arrays,
+    copied, and the host library's NMS): the same keys, dtypes and values,
+    bit for bit."""
+    from parq_torch import telemetry
+    from parq_torch.evals import finish_parse_pred, parse_pred_device
+    from parq_torch.kernels.nms import nms_pack
+    last = _heads(_parse_inputs(gen, K=256))
+    Twl = torch.zeros(1, 12, device="cuda")
+    Twl[:, [0, 4, 8]] = 1.0
+    Twl[:, 9:] = torch.tensor([0.3, -0.2, 0.1])
+    telemetry.reset()
+    before = nms_pack.launches
+    dev = parse_pred_device(last, Twl, (-1.5, 1.5, -2.0, 1.0, 0.0, 2.0),
+                            for_vis, 9, enable_nms)
+    got = finish_parse_pred(dev)       # the device half's NMS settings
+    assert nms_pack.launches == before + 1
+    assert telemetry.snapshot()["counters"]["parse_pred.d2h_copies"] == 1
+    want = finish_parse_pred({k: v.cpu() for k, v in dev.items()
+                              if k not in ("packed", "nms")}, 9, enable_nms,
+                             for_vis)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and \
+            got[k].shape == want[k].shape, k
+        assert np.array_equal(got[k], want[k]), k
+    assert want["pred_mask"].any() and not want["pred_mask"].all()
+    with pytest.raises(ValueError, match="give num_semcls"):
+        parse_pred_device(last, Twl, (-1.5, 1.5, -2.0, 1.0, 0.0, 2.0))
 
 
 def test_device_batch_on_card(gen):
@@ -1135,8 +1260,10 @@ def test_device_marks_lie_in_order_on_the_host_clock(gen):
     from parq_torch import telemetry
     from parq_torch.evals import parse_pred
     from parq_torch.graphs import Graphed
+    from parq_torch.kernels import reset_launch_counts
     telemetry.reset()
     telemetry.enable(True)
+    reset_launch_counts()
     f = Graphed(_heads)
     Twl = torch.zeros(1, 12, device="cuda")
     Twl[:, [0, 4, 8]] = 1.0
@@ -1170,7 +1297,8 @@ def test_device_marks_lie_in_order_on_the_host_clock(gen):
             assert m["decode_end"] <= marks[b + 1]["replay_start"]
     assert snap["spans"]["graphs.replay"]["count"] == 29
     assert snap["spans"]["graphs.capture"]["count"] == 1
-    assert snap["counters"]["parse_pred.d2h_copies"] == 30 * 7
+    assert snap["counters"]["parse_pred.d2h_copies"] == 30 * 1
+    assert snap["counters"]["kernels.nms.launches"] == 30
 
 
 def test_nothing_is_recorded_while_a_stream_captures(gen):

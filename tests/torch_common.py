@@ -143,3 +143,78 @@ def port_and_jax(seed=0, batch_size=2):
     jmodel = jax_tiny_model(cfg)
     batch = make_batch(list(range(batch_size)), image_size=cfg.image_size)
     return port, jmodel, jax_variables(jmodel, port, batch), batch
+
+
+# NMS cases (tests/test_torch_nms.py on the CPU, tests/test_torch_cuda.py
+# on the card): (corners (B, K, 8, 3) f32, scores (B, K) f32, labels (B, K)
+# int64, num_semcls, thresh, same_class), as parse_pred's NMS takes them.
+NMS_SEMCLS = 9
+NMS_EDGE_CASES = ("at", "above", "below", "ties", "background", "same_box",
+                  "same_class")
+_SIGNS = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+                   [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], np.float32)
+
+
+def aabb_corners(lo, hi):
+    """(..., 3) bounds → (..., 8, 3) f32 corners of the axis-aligned box."""
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    return np.where(_SIGNS == 1, hi[..., None, :], lo[..., None, :])
+
+
+def nms_edge_case(name):
+    """One sample built to land on an edge of the greedy pass: "at" (two
+    boxes of IoU exactly 0.1: 1 / (5.5 + 5.5 - 1), both kept), "above"
+    and "below" (the second box's lower x one f32 ulp lower or higher:
+    suppressed, kept), "ties" (equal scores go in index order), "background"
+    (nothing kept), "same_box" (one box eight times: the first kept),
+    "same_class" (0.2, same class: IoU exactly 0.2 kept, a heavy overlap of
+    another class kept, one of the same class suppressed)."""
+    lbl = np.zeros((1, 8), np.int64)
+    thresh, same = 0.1, False
+    lo = np.stack([np.arange(8) * 20.0, np.zeros(8), np.zeros(8)], -1)
+    hi = lo + 1.0                                  # far apart by default
+    scores = np.linspace(0.9, 0.2, 8)
+    if name in ("at", "above", "below"):
+        x0 = np.float32(4.5)
+        if name != "at":
+            x0 = np.nextafter(x0, np.float32(0 if name == "above" else 9))
+        lo[:2], hi[:2] = [[0, 0, 0], [x0, 0, 0]], [[5.5, 1, 1], [10, 1, 1]]
+    elif name == "ties":
+        lo[1:4] = lo[0] + [[0.1, 0, 0], [0.05, 0.05, 0], [0, 0.1, 0]]
+        hi[1:4] = lo[1:4] + 1.0
+        scores[:4] = 0.5
+        scores[5:7] = 0.3
+        lo[5] = lo[6] + 0.05
+        hi[5] = lo[5] + 1.0
+    elif name == "background":
+        lbl[:] = NMS_SEMCLS
+    elif name == "same_box":
+        lo[:], hi[:] = lo[0], hi[0]
+    elif name == "same_class":
+        thresh, same = 0.2, True
+        lo[:4] = [[0, 0, 0], [2, 0, 0], [0.1, 0, 0], [0.2, 0, 0]]
+        hi[:4] = [[3, 1, 1], [5, 1, 1], [3.1, 1, 1], [3.2, 1, 1]]
+        lbl[0, :4] = [1, 1, 2, 1]
+    else:
+        raise ValueError(name)
+    return (aabb_corners(lo, hi)[None], scores[None].astype(np.float32),
+            lbl, NMS_SEMCLS, thresh, same)
+
+
+def nms_cluster_case(seed, B=1, K=256, thresh=0.1, same=False):
+    """B samples of K rotated boxes in a few clusters that overlap, a
+    tenth of them background, scores on a coarse grid (ties)."""
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(B, rng.randint(1, 8), 3) * 1.5
+    center = centers[np.arange(B)[:, None], rng.randint(0, centers.shape[1],
+                                                        (B, K))]
+    center = center + rng.randn(B, K, 3) * 0.3
+    size = rng.rand(B, K, 3) * 1.2 + 0.1
+    q, _ = np.linalg.qr(rng.randn(B, K, 3, 3))
+    local = (_SIGNS - 0.5) * size[..., None, :]
+    corners = np.einsum("bkij,bknj->bkni", q, local) + center[..., None, :]
+    scores = rng.randint(1, 40, (B, K)) / 40.0
+    labels = rng.randint(0, NMS_SEMCLS, (B, K))
+    labels[rng.rand(B, K) < 0.1] = NMS_SEMCLS
+    return (corners.astype(np.float32), scores.astype(np.float32),
+            labels.astype(np.int64), NMS_SEMCLS, thresh, same)
