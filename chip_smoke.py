@@ -117,6 +117,20 @@ Phases, each printed on its own line; any failure exits non-zero:
                replays equal the eager forward bit for bit, 9 DCN
                launches and 49 frozen-BN launches a replay; the replay's
                ms and the peak memory;
+ 10c. bevformer — the MSDA kernel at BEVFormer-base's three call sites
+               (spatial cross-attention over 6 cameras' 4 levels, temporal
+               self-attention over 2 BEV frames, the decoder over the BEV;
+               bf16, within one bf16 ulp of the plain version, two launches
+               equal) and its `msda_rows` line (card ms, bound ms, plain
+               ms, max abs err); the DCN kernel at BEVFormer's two DCN
+               stage shapes; BEVFormer-base in bf16 through BEVStream and
+               Graphed: both forms (a scene's first sample, a carried one)
+               captured, each replay equal to the eager forward bit for
+               bit, two replays of one input equal, 18 MSDA, 26 DCN and
+               100 frozen-BN launches a replay; each form's replay ms, the
+               eager split (backbone and neck, encoder, decoder), the
+               cameras a query and the peak memory; the frozen-BN rows at
+               its stem and a layer-3 identity site;
  11. sp      — two ranks on the one card over gloo (NCCL refuses two ranks
                on one GPU), MESH_MODEL 2, the memory tokens sharded: an f32
                step (TF32 off, L=2, B=1, dropout 0) against the one-process
@@ -2175,9 +2189,10 @@ def dcn_inputs(shape, gen):
             om.to(torch.bfloat16).contiguous(memory_format=cl))
 
 
-def deform_rows():
+def deform_rows(shapes=None, prefix=""):
     """The DCNv2 sampling kernel (`kernels/deform_conv.py`) at PETR's two
-    DCN stage shapes (six cameras) in bf16 against its plain version's f32
+    DCN stage shapes (six cameras; or `shapes`, the rows named with
+    `prefix`) in bf16 against its plain version's f32
     sums: within one bf16 ulp of them (the kernel rounds its f32 sums
     once; 5e-5 for the rounding of grid_sample's normalised coordinates),
     two launches equal bit for bit, the far point 0. Timed by graph
@@ -2188,7 +2203,7 @@ def deform_rows():
                                                 deform_columns_plain)
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows = {}
-    for stage, shape in PETR_DCN_SHAPES.items():
+    for stage, shape in (shapes or PETR_DCN_SHAPES).items():
         x, om = dcn_inputs(shape, gen)
         got = deform_columns(x, om)
         sums = deform_columns_plain(x.float(), om.float())
@@ -2205,12 +2220,13 @@ def deform_rows():
         plain_ms = device_ms(lambda: deform_columns_plain(x, om), 5)
         nbytes = (x.numel() + om.numel() + got.numel()) * x.element_size()
         bound = 1e3 * nbytes / HBM_BYTES_PER_S
-        phase("kernels", f"deform_conv {stage} x {tuple(shape)} bf16: "
+        phase("kernels", f"deform_conv {prefix}{stage} x {tuple(shape)} "
+              "bf16: "
               f"{ms:.4f} ms a launch, bound {bound:.4f} ms (bytes), plain "
               f"{plain_ms:.4f} ms; max abs err {err:.3e} (within one bf16 "
               "ulp of the f32 sums)")
         rows[stage] = dict(
-            name=f"deform_conv_{stage}", route="cuda",
+            name=f"deform_conv_{prefix}{stage}", route="cuda",
             source="parq_torch/csrc/deform_conv.cu",
             replaces="none (the JAX package has no deformable convolution)",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -2228,6 +2244,9 @@ FROZEN_BN_CASES = {
     "petr_layer1_identity": ("petr", (6, 256, 128, 352), "identity"),
     "petr_layer1_downsample": ("petr", (6, 256, 128, 352), "downsample"),
     "release_stem": ("release", (3, 64, 120, 160), None),
+    "bevformer_stem": ("bevformer", (6, 64, 464, 800), None),
+    "bevformer_layer3_identity": ("bevformer", (6, 1024, 58, 100),
+                                  "identity"),
 }
 
 
@@ -2309,6 +2328,8 @@ def frozen_bn_rows(tallies):
 
     rows = []
     for name, (model, shape, res) in FROZEN_BN_CASES.items():
+        if model not in tallies:
+            continue
         sites = tallies[model].get((shape, res), 0)
         check(sites > 0, f"frozen_bn {name}: no launch at {shape} "
               f"({res or 'ReLU'}) in the {model} forward's tally")
@@ -2405,6 +2426,206 @@ def phase_petr(smi_line, replays=20):
     del fwd, model
     torch.cuda.empty_cache()
     return launches // 2, tally
+
+
+BEV_DCN_SHAPES = {"stage3": (6, 256, 58, 100), "stage4": (6, 512, 29, 50)}
+BEV_DCN_BLOCKS = {"stage3": 23, "stage4": 3}     # ResNet-101's blocks there
+BEV_BODY_SITES = 100         # the stem and 3 a block of ResNet-101's 33
+BEV_MSDA_LAUNCHES = 18       # 6 encoder layers x 2, 6 decoder layers x 1
+
+
+def msda_inputs(site, gen, dtype=torch.bfloat16):
+    """The MSDA kernel's arguments at a BEVFormer-base call site: "sca"
+    (6 cameras of 4 FPN levels, 40,000 queries, 4 anchors, 8 points a
+    level, each query hitting a camera with probability 0.22, about the
+    rig's 1.3 cameras a query), "tsa" (the previous and current BEV, 4
+    points, offsets and logits a frame) or "decoder" (the BEV, 900
+    queries, 4 points). Reference points spread a tenth past every edge,
+    offsets of a few cells, logits far from uniform."""
+    from parq_torch.config import BEVFormerConfig
+    cfg = BEVFormerConfig()
+    Hh, Qb, bev = cfg.num_heads, cfg.bev_h * cfg.bev_w, [(cfg.bev_h,
+                                                          cfg.bev_w)]
+    F_, Fr, Q, A, G, shapes, P = {
+        "sca": (6, 6, Qb, 4, 1, list(cfg.level_shapes), cfg.sca_points),
+        "tsa": (2, 1, Qb, 1, 2, bev, cfg.tsa_points),
+        "decoder": (1, 1, cfg.num_query, 1, 1, bev, cfg.decoder_points),
+    }[site]
+    L, Nv = len(shapes), sum(h * w for h, w in shapes)
+    r = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    value = r(1, F_, Nv, Hh, 32).to(dtype)
+    ref = torch.rand(1, Fr, Q, A, 2, device="cuda", generator=gen) * 1.2 \
+        - 0.1
+    off = (r(1, Q, Hh, G, L, P, 2) * 3).to(dtype)
+    logits = (r(1, Q, Hh, G, L * P) * 3).to(dtype)
+    hit = (torch.rand(1, F_, Q, device="cuda", generator=gen) < 0.22) \
+        if site == "sca" else None
+    return value, shapes, ref, off, logits, hit
+
+
+def msda_rows():
+    """The MSDA kernel (`kernels/ms_deform_attn.py`) at BEVFormer-base's
+    three call sites in bf16 against its plain version (mmcv's
+    grid_sample form, f32 on the same bf16 inputs): within one bf16 ulp of
+    it plus 1e-4 (the plain version's coordinates pass through 2 loc - 1
+    and back), two launches equal bit for bit. Timed by graph replay
+    beside the plain version (eager, CUDA events). Bound: bytes, the value
+    maps, offsets, logits, reference points and hit mask read once, the
+    output written once. The record rows without their launches, which
+    `phase_bevformer` gives; printed as the `msda_rows` line."""
+    from parq_torch.kernels.ms_deform_attn import (ms_deform_attn,
+                                                   ms_deform_attn_plain)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for site in ("sca", "tsa", "decoder"):
+        value, shapes, ref, off, logits, hit = args = msda_inputs(site, gen)
+        with torch.inference_mode():
+            got = ms_deform_attn(*args)
+            want = ms_deform_attn_plain(value.float(), shapes, ref,
+                                        off.float(), logits.float(), hit)
+            again = ms_deform_attn(*args)
+        d = (got.float() - want).abs()
+        err = float(d.max())
+        excess = float((d - (want.abs() * 2 ** -8 + 1e-4)).max())
+        check(excess <= 0, f"ms_deform_attn {site}: beyond one bf16 ulp of "
+              f"the plain version by {excess:.3e} (max abs err {err:.3e})")
+        check(torch.equal(got, again), f"ms_deform_attn {site}: two "
+              "launches differ")
+        ms = device_ms(lambda: ms_deform_attn(*args), 20)
+        plain_ms = cuda_ms(lambda: ms_deform_attn_plain(*args), 2)
+        nbytes = sum(t.numel() * t.element_size() for t in
+                     (value, ref, off, logits, got)
+                     + (() if hit is None else (hit,)))
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        phase("kernels", f"ms_deform_attn {site}: value "
+              f"{tuple(value.shape)} over {shapes}, {off.shape[1]} queries "
+              f"bf16: {ms:.4f} ms a launch, bound {bound:.4f} ms (bytes; "
+              f"{ms / bound:.2f}x), plain {plain_ms:.4f} ms; max abs err "
+              f"{err:.3e}")
+        rows.append(dict(
+            name=f"ms_deform_attn_{site}", route="cuda",
+            source="parq_torch/csrc/ms_deform_attn.cu",
+            replaces="none (the JAX package has no deformable attention)",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes", library_ms=None))
+        del args, value, ref, off, logits, hit, got, want, again
+        torch.cuda.empty_cache()
+    phase("msda_rows", json.dumps([{k: r[k] for k in (
+        "name", "ms", "bound_ms", "plain_ms", "max_abs_err")}
+        for r in rows]))
+    return rows
+
+
+def bevformer_samples(cfg, n, gen, seed=3):
+    """n six-camera samples of one scene for `cfg`: random uint8 images,
+    the benchmark's nuScenes-like rig at native intrinsics and CAN-bus rows
+    of its seeded drive (`benchmark.data_bevformer`), on the card."""
+    from benchmark.data_bevformer import scene_rig, trajectory
+    rng = np.random.default_rng(seed)
+    W, H = cfg.image_size
+    l2i = torch.tensor(scene_rig(cfg.num_cams, (W, H), rng),
+                       dtype=torch.float32, device="cuda")[None]
+    can = torch.tensor(trajectory(n, rng), dtype=torch.float64,
+                       device="cuda")
+    return [{"img": torch.randint(0, 256, (1, cfg.num_cams, 3, H, W),
+                                  device="cuda", dtype=torch.uint8,
+                                  generator=gen),
+             "lidar2img": l2i, "can_bus": can[i:i + 1]} for i in range(n)]
+
+
+def phase_bevformer(smi_line, replays=10):
+    """BEVFormer-base at its published widths in bf16
+    (`build_bevformer_model`, the DCN offset convs given offsets of a few
+    pixels) through `BEVStream` around `Graphed`, as the benchmark's
+    BEVFormer cell runs it: a scene's first sample and a carried one
+    capture the two forms; then a replay of each equals the eager forward
+    on the same inputs (the stream's own carried BEV) bit for bit, and two
+    replays of one input equal each other; a replay launches the MSDA
+    kernel 18 times, the DCN kernel 26 times and the frozen-BN pass 100
+    times, which an eager forward's `frozen_bn_tally` must sum to. Each
+    form's replay time, the split of an eager forward (graph-timed:
+    backbone and neck, encoder, decoder and heads) and the peak memory.
+    Returns the DCN launches a forward and the tally."""
+    from parq_torch.config import BEVFormerConfig
+    from parq_torch.graphs import Graphed
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.models import BEVStream, build_bevformer_model
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cfg = BEVFormerConfig(compute_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_bevformer_model(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "conv_offset"):
+                m.conv_offset.weight.normal_(0, 0.05, generator=gen)
+    xs = bevformer_samples(cfg, 4, gen)
+    fwd = Graphed(model)
+    stream = BEVStream(fwd)
+    with torch.inference_mode():
+        outs = [stream(xs[0], 0), stream(xs[1], 0)]       # the two captures
+        check(len(fwd) == 2, f"bevformer: {len(fwd)} captures, not 2")
+        reset_launch_counts()
+        outs += [stream(xs[2], 0), stream(xs[3], 1)]      # carried, first
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for name, n in (("ms_deform_attn", BEV_MSDA_LAUNCHES),
+                        ("deform_conv", sum(BEV_DCN_BLOCKS.values())),
+                        ("frozen_bn", BEV_BODY_SITES)):
+            check(counts[name] == 2 * n, f"bevformer: {counts[name]} "
+                  f"{name} launches in two replays, not {2 * n}")
+        check(len(fwd) == 2, "bevformer: a replay captured again")
+        wants = [model(dict(xs[2], prev_bev=outs[1]["bev_embed"],
+                            prev_can_bus=xs[1]["can_bus"])), model(xs[3])]
+        for form, g, want in zip(("carried", "first"), outs[2:], wants):
+            for k, v in want.items():
+                check(bool(torch.isfinite(v).all()),
+                      f"bevformer: {form} {k} not finite")
+                check(torch.equal(g[k], v), f"bevformer: the replayed "
+                      f"{form} form's {k} differs from the eager forward")
+        carried = dict(xs[2], prev_bev=outs[1]["bev_embed"],
+                       prev_can_bus=xs[1]["can_bus"])
+        a, b = fwd(carried), fwd(carried)
+        for k in a:
+            check(torch.equal(a[k], b[k]), f"bevformer: two replays of one "
+                  f"input differ in {k}")
+        hit = model.pts_bbox_head.point_sampling(xs[0]["lidar2img"])[1]
+        per_query = hit[0].sum(0).float()
+        tally = frozen_bn_tally(lambda: model(xs[0]))
+        check(sum(tally.values()) == BEV_BODY_SITES, f"bevformer: the "
+              f"recorder tallied {sum(tally.values())} frozen-BN launches "
+              f"in an eager forward, not {BEV_BODY_SITES}")
+        ms_first = cuda_ms(lambda: fwd(xs[3]), replays)
+        ms_carried = cuda_ms(lambda: fwd(carried), replays)
+        head = model.pts_bbox_head
+        with model.autocast(torch.device("cuda")):
+            feats, shapes = model.features(xs[2]["img"])
+            bev = head.encode(feats, shapes, carried["lidar2img"],
+                              carried["can_bus"], carried["prev_bev"],
+                              carried["prev_can_bus"])
+            split = {
+                "backbone_neck": device_ms(
+                    lambda: model.features(xs[2]["img"]), 3),
+                "encoder": device_ms(lambda: head.encode(
+                    feats, shapes, carried["lidar2img"], carried["can_bus"],
+                    carried["prev_bev"], carried["prev_can_bus"]), 3),
+                "decoder_heads": device_ms(lambda: head.decode(bev), 3)}
+    peak = torch.cuda.max_memory_allocated()
+    phase("bevformer", f"BEVStream(Graphed(BEVFormerModel)) bf16, "
+          f"{cfg.num_cams} cameras of {cfg.image_size[0]}x"
+          f"{cfg.image_size[1]}, BEV {cfg.bev_h}x{cfg.bev_w}, "
+          f"{cfg.num_query} queries: two forms captured, each replay equals "
+          f"the eager forward bit for bit; {BEV_MSDA_LAUNCHES} MSDA, "
+          f"{sum(BEV_DCN_BLOCKS.values())} DCN, {BEV_BODY_SITES} frozen-BN "
+          f"launches a replay; {ms_first:.3f} ms a first-frame replay, "
+          f"{ms_carried:.3f} ms a carried one (copy-in and clones "
+          f"included); eager split (graph-timed) "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+          + f"; cameras a query: mean {float(per_query.mean()):.3f}, none "
+          f"{int((per_query == 0).sum())}, max {int(per_query.max())}; "
+          f"peak {peak} B; {smi_line}")
+    del fwd, stream, model
+    torch.cuda.empty_cache()
+    return sum(BEV_DCN_BLOCKS.values()), tally
 
 
 def split_rows(cfg, errs, sp_counts):
@@ -2545,7 +2766,8 @@ NO_KERNELS = {"pixel_align_sample": 0, "flash_cross_attention_fwd": 0,
               "flash_cross_attention_fwd_train_split": 0,
               "flash_cross_attention_bwd_split": 0, "lap_solve": 0,
               "dropout_keep_mask": 0, "detection_heads": 0,
-              "deform_conv": 0, "frozen_bn": 0, "nms": 0}
+              "deform_conv": 0, "frozen_bn": 0, "nms": 0,
+              "ms_deform_attn": 0}
 # the frozen-BN pass a bf16 ResNet-50 forward without gradient launches:
 # one a BN site of the body but the 4 downsamples' (the stem, 3 a block)
 BODY_SITES = 49
@@ -4690,6 +4912,13 @@ def main():
               "petr: DCN launches a forward are not one a DCN block")
         rows += [dict(dcn_rows[s], launches=n)      # launches a forward
                  for s, n in PETR_DCN_BLOCKS.items()]
+        bev_dcn_rows = deform_rows(BEV_DCN_SHAPES, "bevformer_")
+        msda = msda_rows()
+        _, bev_tally = phase_bevformer(smi_line)
+        # a forward: 6 launches at each site (a layer each)
+        rows += [dict(r, launches=6) for r in msda]
+        rows += [dict(bev_dcn_rows[s], launches=n)
+                 for s, n in BEV_DCN_BLOCKS.items()]
         del engine
         torch.cuda.empty_cache()
         sp_counts = phase_sp(cfg)
@@ -4700,7 +4929,7 @@ def main():
         ckpt, _ = phase_fit(smi_line)
         _, eval_counts = phase_eval(ckpt, smi_line)
         rows += frozen_bn_rows({
-            "petr": petr_tally,
+            "petr": petr_tally, "bevformer": bev_tally,
             "release": release_frozen_bn_tally(cfg, eval_counts)})
         rows.append(dict(b1_rows["pixel_align_sample_eval"],
                          launches=eval_counts["pixel_align_sample"]))

@@ -186,3 +186,89 @@ class PETRConfig:
         """(w, h) of P4."""
         return (self.image_size[0] // self.stride,
                 self.image_size[1] // self.stride)
+
+
+@dataclasses.dataclass(frozen=True)
+class BEVFormerConfig:
+    """BEVFormer-base (Li et al., ECCV 2022), the published setting:
+    fundamentalvision/BEVFormer projects/configs/bevformer/
+    bevformer_base.py. Six cameras at 1600 x 900, zero-padded to 1600 x
+    928 (size divisor 32) after caffe's normalisation (BGR, std 1); a
+    caffe-style ResNet-101 with DCNv2 in stages 3 and 4 whose C3, C4, C5
+    an mmdet FPN (with one extra stride-2 conv on its last output) turns
+    into 4 levels of width 256; a 200 x 200 BEV of width 256 carried
+    from sample to sample; 6 encoder layers (temporal self-attention over
+    the previous and the current BEV, 1 level, 4 points; spatial
+    cross-attention over the 4 levels of every camera a pillar projects
+    into, 4 height anchors, 8 points), FFN 512; 6 decoder layers over 900
+    queries with box refinement; six unshared class and box heads; the
+    NMS-free decode of the top 300. Ranges are (x_min, y_min, z_min,
+    x_max, y_max, z_max) in metres, in the lidar frame."""
+    image_size: Tuple[int, int] = (1600, 900)     # (W, H), as loaded
+    size_divisor: int = 32                        # pads H to 928
+    num_cams: int = 6
+    resnet_name: str = "resnet101"
+    style: str = "caffe"
+    stage_with_dcn: Tuple[bool, ...] = (False, False, True, True)
+    neck_in_channels: Tuple[int, ...] = (512, 1024, 2048)   # C3, C4, C5
+    num_levels: int = 4                           # the FPN's outputs
+    embed_dims: int = 256
+    num_heads: int = 8
+    ffn_dim: int = 512
+    bev_h: int = 200
+    bev_w: int = 200
+    encoder_layers: int = 6
+    decoder_layers: int = 6
+    num_points_in_pillar: int = 4
+    sca_points: int = 8                           # 2 a height anchor
+    tsa_points: int = 4
+    decoder_points: int = 4
+    num_query: int = 900
+    num_classes: int = 10
+    code_size: int = 10             # cx, cy, w, l, cz, h, sin, cos, vx, vy
+    num_reg_fcs: int = 2
+    can_bus_dims: int = 18
+    rotate_center: Tuple[float, float] = (100.0, 100.0)   # (x, y) cells
+    pc_range: Tuple[float, ...] = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
+    post_center_range: Tuple[float, ...] = PETR_POSITION_RANGE
+    max_num: int = 300
+    img_mean: Tuple[float, ...] = (103.530, 116.280, 123.675)   # BGR
+    img_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
+    compute_dtype: str = "float32"                # or "bfloat16"
+
+    @classmethod
+    def tiny(cls, **overrides) -> "BEVFormerConfig":
+        """A CPU-test size: the same backbone, neck and layer types, 2
+        cameras of 128 x 72 (padded to 128 x 96), a BEV of 8 x 8, 2
+        layers each of width 32 with 4 heads, 24 queries, the top 20
+        decoded."""
+        kw = dict(image_size=(128, 72), num_cams=2, embed_dims=32,
+                  num_heads=4, ffn_dim=64, bev_h=8, bev_w=8,
+                  encoder_layers=2, decoder_layers=2, num_query=24,
+                  max_num=20, rotate_center=(4.0, 4.0))
+        kw.update(overrides)
+        return cls(**kw)
+
+    @property
+    def padded_size(self) -> Tuple[int, int]:
+        """(W, H) after PadMultiViewImage: each side up to a multiple of
+        `size_divisor`."""
+        d = self.size_divisor
+        return tuple(-(-n // d) * d for n in self.image_size)
+
+    @property
+    def level_shapes(self) -> Tuple[Tuple[int, int], ...]:
+        """(h, w) of the FPN's levels: strides 8, 16, 32 (C3..C5, caffe
+        ResNet: each stage halves by floor) and the extra stride-2 conv
+        (padding 1: ceil)."""
+        W, H = self.padded_size
+        h, w = -(-H // 2), -(-W // 2)               # conv1, stride 2
+        h, w = -(-h // 2), -(-w // 2)               # max pool, stride 2
+        shapes = []
+        for _ in range(3):
+            h, w = -(-h // 2), -(-w // 2)
+            shapes.append((h, w))
+        while len(shapes) < self.num_levels:
+            h, w = -(-h // 2), -(-w // 2)
+            shapes.append((h, w))
+        return tuple(shapes)

@@ -13,6 +13,7 @@
 | (none: the JAX package has no deformable convolution) | deform_conv.deform_columns (PETR's DCNv2 im2col) |
 | models/resnet_fpn (frozen BN, ReLU, adds: XLA fusions, no pallas_call) | frozen_bn.frozen_bn_site (a BN site of the ResNet body) |
 | evals/nms.nms_mask_device (plain JAX, no pallas_call) | nms.nms_pack (parse_pred's greedy NMS and the pack of its detections) |
+| (none: the JAX package has no deformable attention) | ms_deform_attn.ms_deform_attn (BEVFormer's multi-scale deformable attention) |
 
 B2 and B3 in bf16 at the release head dim (256) are the Hopper kernels of
 ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (wgmma on TMA-fed
@@ -45,7 +46,12 @@ the modules' ops (`frozen_bn.engages`). The NMS kernel
 sample, in the host library's f64 arithmetic (its keep mask is
 `native.nms3d`'s bit for bit), while CTAs beside it pack the detections
 into one buffer, so that parse_pred's host half makes one copy; CPU
-tensors keep the host route.
+tensors keep the host route. The MSDA kernel (``csrc/ms_deform_attn.cu``)
+takes BEVFormer's three deformable attentions a layer (the spatial
+cross-attention over each query's cameras, the temporal self-attention
+over the previous and current BEV, the decoder's over the BEV), one warp
+a (query, head), the softmax, the sampling locations and the frames'
+combination in the same pass.
 
 The CLI twins (``parq_torch/cli``) and the config tree
 (``parq_torch/config``) changed no kernel: `Trainer.fit` launches B1,
@@ -78,6 +84,7 @@ from .dropout import draw_keep
 from .frozen_bn import frozen_bn_site
 from .heads import detection_heads
 from .lap import solve_lap
+from .ms_deform_attn import ms_deform_attn
 from .nms import nms_pack
 from .pixel_align import (pixel_aligned_features_kernel, sample_views,
                           sample_views_bwd_mem)
@@ -96,6 +103,7 @@ KERNELS = {
     "deform_conv": deform_columns,
     "frozen_bn": frozen_bn_site,
     "nms": nms_pack,
+    "ms_deform_attn": ms_deform_attn,
 }
 SERVE_KERNELS = ("pixel_align_sample", "flash_cross_attention_fwd",
                  "detection_heads")
@@ -141,6 +149,7 @@ __all__ = ["GraphLaunches", "KERNELS", "SERVE_KERNELS", "deform_columns",
            "flash_bwd", "flash_bwd_kv",
            "flash_cross_attention_kv_fused", "flash_fwd_lse",
            "flash_fwd_lse_kv", "frozen_bn_site",
-           "launch_counts", "nms_pack", "pixel_aligned_features_kernel",
+           "launch_counts", "ms_deform_attn", "nms_pack",
+           "pixel_aligned_features_kernel",
            "reset_launch_counts", "sample_views", "sample_views_bwd_mem",
            "solve_lap"]

@@ -48,6 +48,7 @@ LIBRARIES = {
     "deform_conv": ("deform_conv",),
     "frozen_bn": ("frozen_bn",),
     "nms": ("nms",),
+    "ms_deform_attn": ("ms_deform_attn",),
 }
 SOURCES = tuple(LIBRARIES)
 CSRC = Path(__file__).resolve().parents[1] / "csrc"

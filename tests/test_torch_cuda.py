@@ -1552,3 +1552,80 @@ def test_frozen_bn_body_equals_the_modules(gen, monkeypatch, name, style,
         with auto:
             body(x[:1])
         assert fbn.frozen_bn_site.launches == before
+
+
+# ---- BEVFormer's multi-scale deformable attention -------------------------
+
+def _msda_case(gen, site, dtype):
+    import chip_smoke
+    return chip_smoke.msda_inputs(site, gen, dtype)
+
+
+@pytest.mark.parametrize("site", ["sca", "tsa", "decoder"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_msda_kernel_matches_plain(gen, site, dtype):
+    """The MSDA kernel against its plain version (mmcv's grid_sample form,
+    f32 on the same inputs) at BEVFormer-base's three call sites: f32
+    within 1e-4 (the plain version's coordinates pass through 2 loc − 1
+    and back, and its sums run in another order); bf16 within one bf16
+    ulp of that (the kernel rounds its f32 sums once); a query that no
+    camera hits reads 0; two launches equal bit for bit."""
+    from parq_torch.kernels.ms_deform_attn import (ms_deform_attn,
+                                                   ms_deform_attn_plain)
+    value, shapes, ref, off, logits, hit = _msda_case(gen, site, dtype)
+    if hit is not None:
+        hit[0, :, 7] = False
+    before = ms_deform_attn.launches
+    got = ms_deform_attn(value, shapes, ref, off, logits, hit)
+    torch.cuda.synchronize()
+    assert ms_deform_attn.launches == before + 1
+    assert got.dtype == dtype and got.shape == (1, off.shape[1], 256)
+    want = ms_deform_attn_plain(value.float(), shapes, ref, off.float(),
+                                logits.float(), hit)
+    d = (got.float() - want).abs()
+    ulp = 0.0 if dtype == torch.float32 else 2 ** -8
+    assert bool((d <= want.abs() * ulp + 1e-4).all()), float(d.max())
+    if hit is not None:
+        assert torch.count_nonzero(got[0, 7]) == 0
+    assert torch.equal(got, ms_deform_attn(value, shapes, ref, off, logits,
+                                           hit))
+
+
+def test_graphed_bevformer_replays_both_forms_of_the_eager_forward(gen):
+    """BEVFormer-base at its published widths, bf16, through BEVStream and
+    Graphed: a scene's first sample and a carried one capture one form
+    each; a replay of each equals the eager forward on the same inputs
+    bit for bit, and one replay launches the MSDA kernel 18 times (two a
+    encoder layer, one a decoder layer), the DCN kernel 26 times and the
+    frozen-BN pass 100 times."""
+    import chip_smoke
+    from parq_torch.config import BEVFormerConfig
+    from parq_torch.graphs import Graphed
+    from parq_torch.kernels import launch_counts, reset_launch_counts
+    from parq_torch.models import BEVStream, build_bevformer_model
+    cfg = BEVFormerConfig(compute_dtype="bfloat16")
+    model = build_bevformer_model(cfg, seed=0, device="cuda")
+    with torch.no_grad():      # offsets of a few pixels, not mmcv's zeros
+        for m in model.modules():
+            if hasattr(m, "conv_offset"):
+                m.conv_offset.weight.normal_(0, 0.05, generator=gen)
+    xs = chip_smoke.bevformer_samples(cfg, 4, gen)
+    fwd = Graphed(model)
+    stream = BEVStream(fwd)
+    with torch.inference_mode():
+        first, second = stream(xs[0], 0), stream(xs[1], 0)
+        assert len(fwd) == 2
+        reset_launch_counts()
+        carried = stream(xs[2], 0)
+        c = launch_counts()
+        assert (c["ms_deform_attn"], c["deform_conv"], c["frozen_bn"]) == \
+            (18, 26, 100)
+        anew = stream(xs[3], 1)
+        assert len(fwd) == 2
+        wants = [model(dict(xs[2], prev_bev=second["bev_embed"],
+                            prev_can_bus=xs[1]["can_bus"])), model(xs[3])]
+        for got, want in zip((carried, anew), wants):
+            for k, v in want.items():
+                assert torch.isfinite(v).all(), k
+                assert torch.equal(got[k], v), k
+        assert not torch.equal(carried["bev_embed"], first["bev_embed"])
